@@ -59,3 +59,10 @@ def params_from_jax(tree_of_numpy, cfg: ModelConfig,
     dev = resolve_device(device)
     expected = init_params(None, cfg, device="meta")
     return _convert(tree_of_numpy, expected, dev, "")
+
+
+def sgdm_state_from_jax(state_of_numpy, cfg: ModelConfig,
+                        device="cuda") -> Dict[str, Any]:
+    """Port a ``sgdm_init`` state, ``{"mom": <tree shaped like the
+    params>}``, with the same checks as :func:`params_from_jax`."""
+    return {"mom": params_from_jax(state_of_numpy["mom"], cfg, device)}

@@ -1,5 +1,5 @@
-// What the attention kernels of the port share: element conversions, the
-// dtype x head-size dispatch of their C entry points, and errstr.
+// What the kernels of the port share: element conversions, the attention
+// kernels' dtype x head-size dispatch of their C entry points, and errstr.
 //
 // dtype codes and head sizes match repro_torch/kernels/_common.py (DTYPES,
 // HEAD_DIMS): 0 = float32, 1 = bfloat16; head_dim 32, 64, 128 or 256.

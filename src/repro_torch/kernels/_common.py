@@ -1,6 +1,7 @@
-"""What the attention kernel wrappers share: the finite mask value, the
-dtype codes and head sizes their CUDA sources take (``csrc/common.cuh``),
-and the checks a CUDA launch needs."""
+"""What the kernel wrappers share: the dtype codes their CUDA sources take
+(``csrc/common.cuh``); for the attention kernels also the finite mask
+value, the head sizes, the checks a launch needs and the refusal of
+autograd."""
 from __future__ import annotations
 
 import torch
@@ -24,3 +25,18 @@ def check_launch(q, *others) -> None:
         raise ValueError("the kernel's inputs must be on one device")
     if not all(t.is_contiguous() for t in (q, *others)):
         raise ValueError("the kernel reads contiguous inputs")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through ``name``.
+
+    The attention kernels have no backward (nor do the reference's Pallas
+    ones), and their output carries no ``grad_fn``, so a loss reaching them
+    with grad enabled would silently leave attention out of its gradient.
+    Training calls the plain versions (``backend="torch"``), which autograd
+    differentiates.  Raises on every device, the CPU included.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: inputs that require grad must go "
+            "through the plain version (backend='torch')")

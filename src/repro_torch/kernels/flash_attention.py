@@ -23,7 +23,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import DTYPES, NEG_INF, check_launch
+from repro_torch.kernels._common import (DTYPES, NEG_INF, check_launch,
+                                         refuse_grad)
 
 KINDS = {"causal": 0, "swa": 1, "bidir": 2}
 
@@ -73,9 +74,11 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
                     q_offset: int = 0):
     """q (b, sq, h, hd); k/v (b, sk, kv, hd) -> (b, sq, h, hd).
 
-    The kernel on a CUDA tensor, the plain version on a CPU tensor.
+    The kernel on a CUDA tensor, the plain version on a CPU tensor.  No
+    backward: raises if autograd would need one (``refuse_grad``).
     """
     global launches
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, kind=kind, window=window,
                                    q_offset=q_offset)

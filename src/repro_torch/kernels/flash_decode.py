@@ -22,7 +22,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import DTYPES, NEG_INF, check_launch
+from repro_torch.kernels._common import (DTYPES, NEG_INF, check_launch,
+                                         refuse_grad)
 
 MAX_GROUP = 16          # query heads per kv head the kernel takes
 
@@ -75,9 +76,11 @@ def _check(q, k_cache, v_cache) -> None:
 def flash_decode(q, k_cache, v_cache, kv_len):
     """q (b, 1, h, hd); caches (b, S, kv, hd) -> (b, 1, h, hd).
 
-    The kernel on a CUDA tensor, the plain version on a CPU tensor.
+    The kernel on a CUDA tensor, the plain version on a CPU tensor.  No
+    backward: raises if autograd would need one (``refuse_grad``).
     """
     global launches
+    refuse_grad("flash_decode", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return flash_decode_ref(q, k_cache, v_cache, kv_len)
     if q.device.type != "cuda":

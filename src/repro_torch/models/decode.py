@@ -27,19 +27,12 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ATTN_FULL, ATTN_LOCAL, ATTN_SWA, ModelConfig
+from repro_torch.configs.base import ATTN_FULL, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.attention import chunked_attention, decode_attention
-from repro_torch.models.transformer import (RunCtx, _norm, check_supported,
+from repro_torch.models.transformer import (_MASK, RunCtx, _effective,
+                                            _lm_head, _norm, check_supported,
                                             layer_sigs, stack_plan, take)
-
-
-def _effective(cfg: ModelConfig, pattern, li):
-    kind = pattern[li]
-    window = cfg.window_size
-    if cfg.pattern[li] == ATTN_FULL and kind == ATTN_SWA:
-        window = cfg.long_context_variant_window
-    return kind, window
 
 
 def _attn_cache_shape(cfg: ModelConfig, batch: int, cache_len: int,
@@ -178,8 +171,7 @@ def _layers(params, cache, cfg: ModelConfig, pattern):
 
 def _head(params, x, cfg: ModelConfig):
     x = _norm(params["final_norm"], x, cfg)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(x, head).float()
+    return torch.matmul(x, _lm_head(params, cfg)).float()
 
 
 def decode_step(params, cache, tokens, cfg: ModelConfig, ctx: RunCtx,
@@ -209,9 +201,6 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, ctx: RunCtx,
 # fused prefill
 
 
-_PREFILL_MASK = {ATTN_FULL: "causal", ATTN_SWA: "swa", ATTN_LOCAL: "swa"}
-
-
 def _block_prefill(bp, x, cl, cfg: ModelConfig, ctx: RunCtx, kind: str,
                    window: int, rope):
     """One block over the whole prompt (b, s, d), filling ``cl`` in place."""
@@ -234,7 +223,7 @@ def _block_prefill(bp, x, cl, cfg: ModelConfig, ctx: RunCtx, kind: str,
     # attention over the in-flight full-length K/V (exact; the ring only
     # constrains what later decode steps can still see); the mask follows
     # the *effective* kind: a long-context variant runs full layers as SWA
-    o = chunked_attention(q, k, v, kind=_PREFILL_MASK[kind], window=window,
+    o = chunked_attention(q, k, v, kind=_MASK[kind], window=window,
                           backend=ctx.prefill_backend)
     x = x + L.out_proj(bp["attn"], o)
     return x + L.mlp(bp["mlp"], _norm(bp["norm2"], x, cfg))
