@@ -14,6 +14,9 @@ package.  Phases, each fatal on failure (exit code 1, no result line):
 4. hold each attention kernel against its plain PyTorch version on the
    card, at the serving path's shapes and at awkward ones (masks, offsets,
    ragged lengths, mixed-age kv_len, f32 and bf16), each within a bound;
+   ``flash_decode_paged`` also at pages of 1, 5 and 128 tokens, shared and
+   scratch-row tables, kv_len 0/1/full, and bit-identical to
+   ``flash_decode`` on the gathered view;
 5. hold the training kernels against their plain versions: ``block_topk``
    (f32 and bf16, three shapes, k at 1/10/90 % of the block, an all-zero
    and an all-ones row) and ``scatter_aggregate`` (16 packets with 2- and
@@ -30,6 +33,22 @@ package.  Phases, each fatal on failure (exit code 1, no result line):
    ``slot_insert`` / ``slot_evict``) with requests of different prompt
    lengths, so per-slot kv_len reaches ``flash_decode``, counted the same
    way and held against the plain versions;
+   7b. the same on a paged cache (``init_paged_cache``, pages of 16 from a
+   ``PagePool``, an eviction whose pages are recycled into a new request):
+   12 x 24 ``flash_decode_paged`` launches and no ``flash_decode``; logits
+   bit-identical to the fixed-slot kernel path at the same occupancy and
+   within LOGIT_TOL of the paged plain path;
+   7c. paged serving behind the ``Scheduler`` (``SlotRunner`` with 8 slots,
+   pages of 16, chunked prefill of 64, decode_first, a fixed cost model) on
+   a Table I trace with two shared-prefix templates: sharing off, sharing
+   on and a fixed-slot runner; conservation on every run, launches equal to
+   prefill chunks x 24 and decode steps x 24, paged tokens identical to
+   fixed-slot tokens, prefix hits with sharing on;
+   7d. the streaming launcher (``run_streaming``: ``measured_cost_model``,
+   then ``ContinuousBatchingServer`` over a fixed-slot ``SlotRunner``) on a
+   short Table I trace, counted the same way: launches equal to fused
+   prefills x 24 and decode steps x 24, every request in one terminal
+   state, completed requests with all their tokens;
 8. train qwen2-0.5b at full width and depth (random f32 weights from seed
    0, batch 8 x 256 tokens from ``TokenData``, remat, loss chunk 128) with
    ``make_ddp_steps`` (cr 0.1, momentum-SGD 0.9, lr 1e-3, one rank): a
@@ -48,7 +67,9 @@ package.  Phases, each fatal on failure (exit code 1, no result line):
    synchronised work), a decode step's device time the same way as the
    kernels', and, where torch.profiler records the card, its device time
    by kernel; time the dense and compressed training steps with CUDA-event
-   splits (forward+backward, top-k, aggregation, update);
+   splits (forward+backward, top-k, aggregation, update); time a decode
+   step of a paged and of a fixed-slot cache at one occupancy, in turns,
+   and ``measured_cost_model``;
 10. print one JSON line of kernels, then the result line.
 
 The last line of standard output is
@@ -90,15 +111,29 @@ HBM_BPS = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 
 DEVICE = "cuda"
+# phase 7c: paged serving behind the Scheduler (a fixed cost model, so the
+# schedule is deterministic; SLOs generous enough that nothing is shed)
+SCHED = {"max_batch": 8, "cache_len": 192, "chunk": 64, "horizon": 1.75,
+         "paged": {"page_size": 16, "num_pages": 72},
+         "cost": {"decode_step_s": 0.02, "prefill_token_s": 2e-4,
+                  "prefill_base_s": 2e-3},
+         "stream": {"dist": "S1", "prompt_lens": (17, 64, 128),
+                    "max_new_tokens": 32, "slo_ttft_s": 1e3,
+                    "slo_tpot_s": 1e3, "n_templates": 2,
+                    "template_prefix_len": 48, "seed": 0}}
 SERVE_ARGV = ["--arch", "qwen2-0.5b", "--batch", "8", "--prompt-len", "128",
               "--gen", "32", "--temperature", "0", "--seed", "0",
               "--device", DEVICE]
+# phase 7d: the streaming launcher on a short Table I trace (about ten
+# requests over eight slots)
+STREAM_ARGV = ["--streaming", "--dist", "S1", "--clients", "16",
+               "--max-batch", "8", "--horizon", "2"]
 TRAIN = {"arch": "qwen2-0.5b", "batch": 8, "seq": 256, "loss_chunk": 128,
          "cr": 0.1, "momentum": 0.9, "lr": 1e-3, "seed": 0}
 KERNEL_SOURCES = ["flash_attention", "flash_decode", "block_topk",
                   "fused_sgdm", "scatter_agg"]
-KERNEL_NAMES = ("flash_attention", "flash_decode", "block_topk", "fused_sgdm",
-                "scatter_aggregate")
+KERNEL_NAMES = ("flash_attention", "flash_decode", "flash_decode_paged",
+                "block_topk", "fused_sgdm", "scatter_aggregate")
 
 
 def fail(msg: str) -> None:
@@ -214,8 +249,72 @@ def check_kernels(torch, fa, fd):
         compare(torch, f"flash_decode {label} q{(b, 1, h, hd)} "
                 f"cache{(b, S, kv, hd)} kv_len={lens} {dt}", out, ref, dt,
                 errs["flash_decode"])
+    errs["flash_decode_paged"] = check_paged(torch, fd, gen, dts)
     return {name: max(e for d, e in es if d == "float32")
             for name, es in errs.items()}
+
+
+def block_table(torch, kind, b, ncols, rows, gen):
+    """(b, ncols) int32 pool rows: "scrambled" draws every row once before
+    any twice; "shared" gives slots 0 and 1 the same first half; "scratch"
+    points the last slot's whole row at the pool's top row."""
+    n = b * ncols
+    perm = torch.cat([torch.randperm(rows, generator=gen, device=DEVICE)
+                      for _ in range(-(-n // rows))])[:n]
+    bt = perm.reshape(b, ncols).to(torch.int32)
+    if kind == "shared":
+        bt[1, :ncols // 2] = bt[0, :ncols // 2]
+    elif kind == "scratch":
+        bt[-1] = rows - 1
+    return bt.contiguous()
+
+
+def check_paged(torch, fd, gen, dts):
+    """``flash_decode_paged`` vs its plain version (the ``pool[bt]`` gather,
+    then ``flash_decode_ref``), and bit for bit vs ``flash_decode`` on the
+    gathered view: the two share one kernel body and tile order."""
+    cases = [
+        # (label, b, pg, ncols, rows, h, kv, hd, kv_len, dtype, table)
+        ("serving decode", 8, 16, 12, 80, 14, 2, 64, [160] * 8, "float32",
+         "scrambled"),
+        ("serving decode, mixed age", 8, 16, 12, 80, 14, 2, 64,
+         [1, 17, 64, 65, 100, 128, 159, 192], "bfloat16", "scrambled"),
+        ("page 1", 3, 1, 40, 130, 14, 2, 64, [40, 1, 17], "float32",
+         "scrambled"),
+        ("page 5, kv_len 0", 4, 5, 13, 60, 14, 2, 64, [0, 1, 65, 33],
+         "float32", "scrambled"),
+        ("page 128 > tile", 2, 128, 3, 7, 14, 2, 64, [384, 200], "float32",
+         "scrambled"),
+        ("two slots share rows", 4, 16, 6, 20, 14, 2, 64, [90, 70, 96, 5],
+         "float32", "shared"),
+        ("slot on the top scratch row", 3, 16, 4, 10, 14, 2, 64,
+         [64, 30, 1], "float32", "scratch"),
+        ("g 1, hd 32", 2, 16, 4, 9, 4, 4, 32, [64, 20], "float32",
+         "scrambled"),
+        ("hd 128, g 4", 3, 8, 10, 40, 8, 2, 128, [80, 41, 7], "float32",
+         "scrambled"),
+    ]
+    errs = []
+    for (label, b, pg, ncols, rows, h, kv, hd, lens, dt, table) in cases:
+        q = rand(torch, (b, 1, h, hd), dts[dt], gen)
+        kp = rand(torch, (rows, pg, kv, hd), dts[dt], gen)
+        vp = rand(torch, (rows, pg, kv, hd), dts[dt], gen)
+        bt = block_table(torch, table, b, ncols, rows, gen)
+        kvl = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+        out = fd.flash_decode_paged(q, kp, vp, bt, kvl)
+        ref = fd.flash_decode_paged_ref(q, kp, vp, bt, kvl)
+        compare(torch, f"flash_decode_paged {label} q{(b, 1, h, hd)} "
+                f"pools{(rows, pg, kv, hd)} bt{(b, ncols)} {table} "
+                f"kv_len={lens} {dt}", out, ref, dt, errs)
+        S = ncols * pg
+        view = [pool[bt.long()].reshape(b, S, kv, hd) for pool in (kp, vp)]
+        same = torch.equal(out, fd.flash_decode(q, *view, kvl))
+        log(f"    bit-identical to flash_decode on the gathered view: "
+            f"{same}")
+        if not same:
+            fail("flash_decode_paged differs from flash_decode on the same "
+                 "keys")
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -331,6 +430,7 @@ def counts(mods):
     """Launches of every kernel wrapper so far."""
     return {"flash_attention": mods.fa.launches,
             "flash_decode": mods.fd.launches,
+            "flash_decode_paged": mods.fd.paged_launches,
             "block_topk": mods.bt.launches["block_topk"],
             "fused_sgdm": mods.bt.launches["fused_sgdm"],
             "scatter_aggregate": mods.sa.launches}
@@ -338,6 +438,7 @@ def counts(mods):
 
 def reset(mods):
     mods.fa.launches = mods.fd.launches = mods.sa.launches = 0
+    mods.fd.paged_launches = 0
     for key in mods.bt.launches:
         mods.bt.launches[key] = 0
 
@@ -449,6 +550,243 @@ def serve_slots(torch, mods, serve, dec):
         f"bound {LOGIT_TOL:g}")
     if not err <= LOGIT_TOL:
         fail("slot-path logits disagree with the plain path")
+    return launched
+
+
+def serve_paged(torch, mods, serve, dec, paging):
+    """Phase 7b: the slot run of phase 7 on a paged cache, teacher-forced
+    against the fixed-slot kernel path and the paged plain path."""
+    log("# phase 7b: paged decode, qwen2-0.5b full width")
+    args = serve.parse_args(SERVE_ARGV)
+    cfg, ctx, params, _, _ = serve.setup(args)
+    tctx = dataclasses.replace(ctx, prefill_backend="torch",
+                               decode_backend="torch")
+    max_batch, cache_len, steps, page, n_pages = 5, 160, 12, 16, 64
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    prompts = {plen: torch.randint(0, cfg.vocab_size, (1, plen),
+                                   generator=gen, device=DEVICE)
+               for plen in (17, 64, 100, 128, 33)}
+
+    def run(run_ctx, paged, forced=None):
+        if paged:
+            cache = dec.init_paged_cache(cfg, max_batch, cache_len, run_ctx,
+                                         page_size=page, num_pages=n_pages)
+        else:
+            cache = dec.init_slot_cache(cfg, max_batch, cache_len, run_ctx)
+        pool = paging.PagePool(n_pages)
+        held = {}
+
+        def admit(slot, plen):
+            fresh = dec.init_cache(cfg, 1, cache_len, run_ctx)
+            _, src = dec.prefill_cache(params, prompts[plen], fresh, cfg,
+                                       run_ctx)
+            held[slot] = pool.alloc(dec.pages_needed(
+                cfg, cache_len, page, plen + steps))
+            dec.slot_insert(cache, slot, src,
+                            pages=held[slot] if paged else None)
+
+        for slot, plen in enumerate((17, 64, 100, 128)):
+            admit(slot, plen)
+        tok = torch.zeros((max_batch, 1), dtype=torch.long, device=DEVICE)
+        toks, logits_all, live = [], [], [[0, 1, 2, 3]]
+        for i in range(steps):
+            if forced is not None:
+                tok = forced[i]
+            toks.append(tok)
+            logits, cache = dec.decode_step(params, cache, tok, cfg, run_ctx)
+            logits_all.append(logits)
+            tok = torch.argmax(logits, -1)[:, None]
+            if i == 5:
+                # slot 2 finishes; every other page is taken by requests
+                # in flight, so the 33-token request in slot 4 gets the
+                # pages slot 2 gave back
+                others = pool.alloc(pool.available)
+                dec.slot_evict(cache, 2)
+                freed = held.pop(2)
+                pool.free(freed)
+                admit(4, 33)
+                if not set(held[4]) <= set(freed):
+                    fail(f"pages {held[4]} not recycled from {freed}")
+                pool.free(others)
+            live.append([0, 1, 3, 4] if i >= 5 else [0, 1, 2, 3])
+        return toks, logits_all, live[:steps]
+
+    reset(mods)
+    toks, logits_p, live = run(ctx, paged=True)
+    torch.cuda.synchronize()
+    launched = counts(mods)
+    want = expect(flash_attention=5 * cfg.num_layers,
+                  flash_decode_paged=steps * cfg.num_layers)
+    log(f"  launches on the paged path: {launched}")
+    if launched != want:
+        fail(f"paged path launched {launched}, expected {want}")
+    _, logits_f, _ = run(ctx, paged=False, forced=toks)
+    same = all(torch.equal(a[rows], b[rows])
+               for a, b, rows in zip(logits_p, logits_f, live))
+    _, logits_t, _ = run(tctx, paged=True, forced=toks)
+    err = max(max_err(a, b) for a, b in zip(logits_p, logits_t))
+    finite = all(bool(torch.isfinite(x).all()) for x in logits_p)
+    log(f"  paged-path logits: bit-identical to the fixed-slot kernel path "
+        f"{same}; vs the paged plain path max_abs_err={err:.3e} bound "
+        f"{LOGIT_TOL:g}; finite {finite}")
+    if not (same and finite and err <= LOGIT_TOL):
+        fail("paged-path logits disagree with the fixed-slot or plain path")
+    return launched
+
+
+def serve_scheduled(torch, mods, serve, rt):
+    """Phase 7c: paged serving behind the Scheduler at full width, with
+    prefix sharing off and on, against a fixed-slot runner on the same
+    trace and a fixed cost model (so the schedule is deterministic)."""
+    log("# phase 7c: paged serving behind the Scheduler, qwen2-0.5b full "
+        "width")
+    args = serve.parse_args(SERVE_ARGV)
+    cfg, ctx, params, _, _ = serve.setup(args)
+    cost = rt.StepCostModel(**SCHED["cost"])
+    reqs = rt.RequestStream(**SCHED["stream"]).generate(SCHED["horizon"])
+    log(f"  {len(reqs)} requests, prompts "
+        f"{sorted({r.prompt_len for r in reqs})}, templates "
+        f"{sorted({r.template for r in reqs})}")
+    runs, total = {}, {name: 0 for name in KERNEL_NAMES}
+    for label, kw in (("paged, sharing off", SCHED["paged"]),
+                      ("paged, sharing on",
+                       dict(SCHED["paged"], prefix_sharing=True)),
+                      ("fixed-slot", {})):
+        runner = rt.SlotRunner(params, cfg, ctx, SCHED["max_batch"],
+                               SCHED["cache_len"], **kw)
+        sched = rt.Scheduler(SCHED["max_batch"], cost, runners=[runner],
+                             chunk_tokens=SCHED["chunk"],
+                             priority="decode_first")
+        n = {"chunks": 0, "steps": 0}
+        chunk, step = sched._prefill_chunk, runner.step
+
+        def counted_chunk(lane, now, chunk=chunk):
+            n["chunks"] += 1
+            return chunk(lane, now)
+
+        def counted_step(active, step=step):
+            n["steps"] += 1
+            return step(active)
+
+        sched._prefill_chunk, runner.step = counted_chunk, counted_step
+        reset(mods)
+        t0 = time.perf_counter()
+        recs, summary = sched.run(reqs, horizon_s=SCHED["horizon"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts(mods)
+        for name in total:
+            total[name] += launched[name]
+        paged = "page_size" in kw
+        decode = "flash_decode_paged" if paged else "flash_decode"
+        want = expect(flash_attention=n["chunks"] * cfg.num_layers,
+                      **{decode: n["steps"] * cfg.num_layers})
+        done = [r for r in recs if r.completed]
+        share = summary.get("prefix_sharing") or {}
+        log(f"  {label}: {n['chunks']} prefill chunks, {n['steps']} decode "
+            f"steps, {wall:.2f} s wall; conservation_ok "
+            f"{summary['conservation_ok']}; completed {len(done)}/"
+            f"{len(recs)}; launches {launched}"
+            + (f"; prefix hits {share['hits']}/{share['lookups']}, prefill "
+               f"tokens skipped {share['prefill_tokens_skipped']}, pages "
+               f"saved {share['pages_saved']}/{share['pages_asked']}"
+               if share else ""))
+        if not summary["conservation_ok"]:
+            fail(f"{label}: a request reached no single terminal state")
+        if launched != want:
+            fail(f"{label}: launched {launched}, expected {want}")
+        if not done or any(len(runner.generated[r.rid]) != r.target_tokens
+                           or not all(0 <= t < cfg.vocab_size for t in
+                                      runner.generated[r.rid])
+                           for r in done):
+            fail(f"{label}: completed requests lack their tokens")
+        if paged and not runner.pool.conserved():
+            fail(f"{label}: page pool not conserved")
+        runs[label] = (runner.generated, share)
+    off, on, fixed = (runs[k][0] for k in runs)
+    if off != fixed:
+        fail("paged tokens differ from fixed-slot tokens on one schedule")
+    share = runs["paged, sharing on"][1]
+    if not (share.get("prefill_tokens_skipped", 0) > 0
+            and share.get("pages_saved", 0) > 0):
+        fail("prefix sharing found no hit")
+    agree = sum(a == b for rid in on for a, b in zip(on[rid], off[rid]))
+    log(f"  paged tokens identical to fixed-slot tokens: True; sharing-on "
+        f"tokens equal to sharing-off: {agree}/"
+        f"{sum(len(v) for v in off.values())} (chunk products of other "
+        f"M may round differently; reported, not required)")
+    return total
+
+
+def serve_streaming(torch, mods, serve, rt):
+    """Phase 7d: the streaming launcher at full width, as a user runs it:
+    ``measured_cost_model``, then ``ContinuousBatchingServer`` over a
+    fixed-slot ``SlotRunner`` on a Table I trace.  Every fused prefill and
+    decode step of the run (the cost model's timed calls and the server's)
+    is counted where the engine makes it, so the launch counts are held to
+    prefills x 24 and decode steps x 24."""
+    log("# phase 7d: streaming launcher, qwen2-0.5b full width")
+    args = serve.parse_args(SERVE_ARGV + STREAM_ARGV)
+    eng = rt.engine
+    n = {"prefill": 0, "decode": 0}
+    orig = {"prefill_cache": eng.prefill_cache,
+            "decode_step": eng.decode_step,
+            "measured_cost_model": rt.measured_cost_model}
+
+    def counting(key, fn):
+        def call(*a, **kw):
+            n[key] += 1
+            return fn(*a, **kw)
+        return call
+
+    def cost_model(*a, **kw):
+        cost = orig["measured_cost_model"](*a, **kw)
+        n["cost_model"] = dict(n)
+        return cost
+
+    eng.prefill_cache = counting("prefill", orig["prefill_cache"])
+    eng.decode_step = counting("decode", orig["decode_step"])
+    rt.measured_cost_model = cost_model
+    try:
+        reset(mods)
+        t0 = time.perf_counter()
+        res = serve.run_streaming(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts(mods)
+    finally:
+        eng.prefill_cache = orig["prefill_cache"]
+        eng.decode_step = orig["decode_step"]
+        rt.measured_cost_model = orig["measured_cost_model"]
+    cfg, recs, summary = res["cfg"], res["records"], res["summary"]
+    runner = res["runner"]
+    by_cost = n.pop("cost_model")
+    log(f"  {summary['n_requests']} requests, {wall:.2f} s wall; "
+        f"measured_cost_model made {by_cost['prefill']} prefills and "
+        f"{by_cost['decode']} decode steps, the server "
+        f"{n['prefill'] - by_cost['prefill']} and "
+        f"{n['decode'] - by_cost['decode']}; launches {launched}")
+    want = expect(flash_attention=n["prefill"] * cfg.num_layers,
+                  flash_decode=n["decode"] * cfg.num_layers)
+    if launched != want:
+        fail(f"streaming launcher launched {launched}, expected {want}")
+    if runner.page_size is not None:
+        fail("the streaming launcher's runner is not fixed-slot")
+    done = [r for r in recs if r.completed]
+    if (len(recs) != summary["n_requests"]
+            or len({r.rid for r in recs}) != len(recs)
+            or any((r.finish_s is not None) == (r.dropped is not None)
+                   for r in recs)):
+        fail("streaming: a request reached no single terminal state")
+    if not done or any(len(runner.generated[r.rid]) != r.target_tokens
+                       or not all(0 <= t < cfg.vocab_size
+                                  for t in runner.generated[r.rid])
+                       for r in done):
+        fail("streaming: completed requests lack their tokens")
+    log(f"  conservation: {len(done)} completed + "
+        f"{summary['dropped']} dropped = {len(recs)} requests; "
+        f"slo_attainment {summary['slo_attainment']:.4f}, ttft_p50 "
+        f"{summary['ttft_p50_s']:.4f} s (sim clock)")
     return launched
 
 
@@ -701,7 +1039,75 @@ def time_kernels(torch, fa, fd):
     dec["bound_ms"], dec["bound_by"] = bound(
         4 * (2 * qd.numel() + 2 * b * kv_len * kv * hd) + 4 * b,
         4 * hd * b * h * kv_len, "float32")
-    return {"flash_attention": attn, "flash_decode": dec}
+
+    # paged, at phase 4's serving shape: pages of 16, 12 columns, 80 rows
+    pg, ncols, rows = 16, 12, 80
+    kp = torch.randn((rows, pg, kv, hd), generator=gen, device=DEVICE)
+    vp = torch.randn((rows, pg, kv, hd), generator=gen, device=DEVICE)
+    bt = block_table(torch, "scrambled", b, ncols, rows, gen)
+
+    def gather_sdpa():                 # two calls: pool[bt] gather + SDPA
+        view = [pool[bt.long()].reshape(b, ncols * pg, kv, hd)[:, :kv_len]
+                .transpose(1, 2) for pool in (kp, vp)]
+        return F.scaled_dot_product_attention(qdt, *view, enable_gqa=True)
+
+    paged = time_fns(
+        torch, lambda: fd.flash_decode_paged(qd, kp, vp, bt, kvl),
+        lambda: fd.flash_decode_paged_ref(qd, kp, vp, bt, kvl), gather_sdpa)
+    paged["bound_ms"], paged["bound_by"] = bound(
+        4 * (2 * qd.numel() + 2 * b * kv_len * kv * hd) + 4 * b
+        + 4 * bt.numel(), 4 * hd * b * h * kv_len, "float32")
+    return {"flash_attention": attn, "flash_decode": dec,
+            "flash_decode_paged": paged}
+
+
+def time_paged_steps(torch, serve, dec, rt, card, steps=8):
+    """A decode step of a fixed-slot and of a paged cache at one occupancy
+    (8 slots, prompt 128, cache 160, pages of 16), host clock around
+    ``steps`` synchronised steps from the same start, in turns (fixed,
+    paged, paged, fixed) within this call; then ``measured_cost_model``."""
+    log(f"# phase 9: paged vs fixed decode step on {card}")
+    args = serve.parse_args(SERVE_ARGV)
+    cfg, ctx, params, prompts, _ = serve.setup(args)
+    cache_len = args.prompt_len + args.gen
+    src = dec.init_slot_cache(cfg, args.batch, cache_len, ctx)
+    _, src = dec.prefill_cache(params, prompts, src, cfg, ctx)
+    caches = {"fixed": dec.init_slot_cache(cfg, args.batch, cache_len, ctx),
+              "paged": dec.init_paged_cache(
+                  cfg, args.batch, cache_len, ctx, page_size=16,
+                  num_pages=args.batch * cache_len // 16)}
+    per_slot = cache_len // 16
+    for slot in range(args.batch):
+        dec.slot_insert(caches["fixed"], slot, src, src_slot=slot)
+        dec.slot_insert(caches["paged"], slot, src, src_slot=slot,
+                        pages=range(slot * per_slot, (slot + 1) * per_slot))
+    tok = torch.zeros((args.batch, 1), dtype=torch.long, device=DEVICE)
+    pos0 = {k: c["pos"] for k, c in caches.items()}
+
+    def run(kind):
+        cache = caches[kind]
+        cache["pos"] = pos0[kind]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            dec.decode_step(params, cache, tok, cfg, ctx)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    run("fixed"), run("paged")                     # warm-up
+    order = ("fixed", "paged", "paged", "fixed")
+    ms = [(kind, run(kind)) for kind in order]
+    log("  decode ms/step, in turns: " + ", ".join(
+        f"{kind} {t:.3f}" for kind, t in ms) + f"  [{card}]")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cost = rt.measured_cost_model(params, cfg, ctx, args.batch, cache_len,
+                                  args.prompt_len)
+    wall = time.perf_counter() - t0
+    log(f"  measured_cost_model (b {args.batch}, cache {cache_len}, prompt "
+        f"{args.prompt_len}): decode_step_s {cost.decode_step_s:.6f}, "
+        f"prefill_token_s {cost.prefill_token_s:.3e}, prefill_base_s "
+        f"{cost.prefill_base_s:.6f}; the call took {wall:.3f} s  [{card}]")
 
 
 def profile_decode(torch, dec, params, prompts, cfg, ctx, cache_len, card,
@@ -944,7 +1350,9 @@ def main() -> None:
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import scatter_agg as sa
     from repro_torch.launch import serve
+    from repro_torch import serve as rt
     from repro_torch.models import decode as dec
+    from repro_torch.models import paging
     from repro_torch.models.transformer import init_params
     from repro_torch.tree import leaves
     mods = types.SimpleNamespace(fa=fa, fd=fd, bt=bt, sa=sa)
@@ -959,6 +1367,10 @@ def main() -> None:
     errs.update(check_train_kernels(torch, bt, sa, n_train))
     launched, _ = serve_offline(torch, mods, serve, dec)
     serve_slots(torch, mods, serve, dec)
+    serve_paged(torch, mods, serve, dec, paging)
+    sched_launched = serve_scheduled(torch, mods, serve, rt)
+    serve_streaming(torch, mods, serve, rt)
+    launched["flash_decode_paged"] = sched_launched["flash_decode_paged"]
     train_launched, train = train_path(torch, mods)
     launched.update({name: train_launched[name] for name in
                      ("block_topk", "fused_sgdm", "scatter_aggregate")})
@@ -968,12 +1380,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     times.update(time_kernels(torch, fa, fd))
     time_serving(torch, serve, dec, card)
+    time_paged_steps(torch, serve, dec, rt, card)
 
     sources = {
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:86"),
         "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                          "src/repro/kernels/flash_decode.py:148"),
+        "flash_decode_paged": ("src/repro_torch/csrc/flash_decode.cu",
+                               "src/repro/kernels/flash_decode.py:181"),
         "block_topk": ("src/repro_torch/csrc/block_topk.cu",
                        "src/repro/kernels/block_topk.py:59"),
         "fused_sgdm": ("src/repro_torch/csrc/fused_sgdm.cu",

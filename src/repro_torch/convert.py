@@ -66,3 +66,28 @@ def sgdm_state_from_jax(state_of_numpy, cfg: ModelConfig,
     """Port a ``sgdm_init`` state, ``{"mom": <tree shaped like the
     params>}``, with the same checks as :func:`params_from_jax`."""
     return {"mom": params_from_jax(state_of_numpy["mom"], cfg, device)}
+
+
+def cache_from_jax(cache_of_numpy, device="cuda") -> Dict[str, Any]:
+    """Port a decode cache from the reference's, as numpy arrays.
+
+    ``cache_of_numpy`` is ``jax.tree.map(np.asarray, cache)`` for a cache
+    of ``repro.models.decode`` (``init_cache``, ``init_slot_cache`` or
+    ``init_paged_cache``, filled or not): ``unit``/``rest`` layer dicts of
+    ``k``/``v`` (and, paged, the int32 block table ``bt``) and ``pos``.  The
+    port keeps that layout, so this is a checked copy: dtypes are kept and
+    each leaf is a private tensor on ``device``.
+    """
+    dev = resolve_device(device)
+    if not isinstance(cache_of_numpy, dict) or set(cache_of_numpy) != {
+            "unit", "rest", "pos"}:
+        raise ValueError("a decode cache is a dict of unit, rest and pos")
+
+    def conv(tree, path):
+        if isinstance(tree, dict):
+            return {k: conv(v, f"{path}.{k}") for k, v in tree.items()}
+        if np.ndim(tree) == 0 and path != "pos":
+            raise ValueError(f"{path}: expected an array")
+        return _to_tensor(tree, dev)
+
+    return {key: conv(cache_of_numpy[key], key) for key in cache_of_numpy}

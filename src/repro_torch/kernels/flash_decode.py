@@ -1,19 +1,27 @@
-"""Flash-decode over contiguous slot caches: CUDA kernel + plain version.
+"""Flash-decode over contiguous slot caches and paged pools: CUDA kernel +
+plain versions.
 
-Counterpart of ``repro/kernels/flash_decode.py::flash_decode`` (the TPU
-kernel ``_decode_kernel``).  The kernel is ``csrc/flash_decode.cu``, written
-by hand for Hopper (sm_90a); the source's header says what bounds it and how.
+Counterpart of ``repro/kernels/flash_decode.py``: ``flash_decode`` (the TPU
+kernel ``_decode_kernel``) and ``flash_decode_paged`` (``_paged_decode_
+kernel``).  Both launch one kernel body of ``csrc/flash_decode.cu``, written
+by hand for Hopper (sm_90a), which differs between them only in how it
+addresses a K/V row; the source's header says what bounds it and how.
 
-* :func:`flash_decode` — the wrapper.  For CPU tensors it runs the plain
-  version; for CUDA tensors it launches the kernel or raises, never falls
-  back.  ``launches`` counts its kernel launches.
+* :func:`flash_decode` / :func:`flash_decode_paged` — the wrappers.  For
+  CPU tensors they run the plain version; for CUDA tensors they launch the
+  kernel or raise, never fall back.  ``launches`` / ``paged_launches``
+  count their kernel launches.
 * :func:`flash_decode_ref` — the plain PyTorch version, the reference's
   ``decode_attention`` jax path: f32 scores, ``kv_len`` masking, softmax,
   then ``p`` cast to the cache dtype for the PV product (the kernel keeps
   ``p`` in f32, so the two differ by bf16 rounding on bf16 caches).
+* :func:`flash_decode_paged_ref` — the reference's own oracle of the paged
+  kernel: gather ``pool[bt]`` into the contiguous view, then
+  :func:`flash_decode_ref`.
 
-q (b, 1, h, hd); caches (b, S, kv, hd), fixed-slot rows or SWA rings;
-``kv_len`` a scalar or a (b,) vector of per-slot valid lengths.
+q (b, 1, h, hd); caches (b, S, kv, hd), fixed-slot rows or SWA rings; pools
+(rows, pg, kv, hd) behind a (b, ncols) int32 block table; ``kv_len`` a
+scalar or a (b,) vector of per-slot valid lengths.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from repro_torch.kernels._common import (DTYPES, NEG_INF, check_launch,
 MAX_GROUP = 16          # query heads per kv head the kernel takes
 
 launches = 0  # kernel launches made by flash_decode (not by the plain version)
+paged_launches = 0  # the same for flash_decode_paged
 
 
 def _kv_len_vector(kv_len, b: int, device) -> torch.Tensor:
@@ -53,7 +62,21 @@ def flash_decode_ref(q, k_cache, v_cache, kv_len):
     return o.reshape(b, 1, h, hd)
 
 
+def flash_decode_paged_ref(q, k_pool, v_pool, bt, kv_len):
+    """Plain PyTorch version of the paged kernel (any device): the slots'
+    pages gathered into (b, ncols * pg, kv, hd) views, then
+    :func:`flash_decode_ref`."""
+    b = q.shape[0]
+    _, pg, kvh, hd = k_pool.shape
+    S = bt.shape[-1] * pg
+    rows = bt.long()
+    return flash_decode_ref(q, k_pool[rows].reshape(b, S, kvh, hd),
+                            v_pool[rows].reshape(b, S, kvh, hd), kv_len)
+
+
 _ARGTYPES = {"flash_decode": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_void_p],
+             "flash_decode_paged": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p]}
 
 
@@ -99,4 +122,59 @@ def flash_decode(q, k_cache, v_cache, kv_len):
             hd ** -0.5, stream)
     _build.check(lib, err, "flash_decode")
     launches += 1
+    return o
+
+
+def _check_paged(q, k_pool, v_pool, bt) -> None:
+    if q.ndim != 4 or q.shape[1] != 1 or k_pool.ndim != 4 \
+            or k_pool.shape != v_pool.shape or bt.ndim != 2:
+        raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k_pool.shape)}"
+                         f" v{tuple(v_pool.shape)} bt{tuple(bt.shape)}")
+    b, _, h, hd = q.shape
+    _, _, kvh, khd = k_pool.shape
+    if bt.shape[0] != b or khd != hd or h % kvh:
+        raise ValueError(f"q{tuple(q.shape)} does not match pools "
+                         f"{tuple(k_pool.shape)} and bt{tuple(bt.shape)}")
+    if h // kvh > MAX_GROUP:
+        raise ValueError(f"{h // kvh} query heads per kv head; the kernel "
+                         f"takes at most {MAX_GROUP}")
+    if bt.dtype != torch.int32:
+        raise TypeError(f"bt is {bt.dtype}; the kernel reads int32")
+    if bt.device != q.device or not bt.is_contiguous():
+        raise ValueError("bt must be contiguous and on q's device")
+    check_launch(q, k_pool, v_pool)
+
+
+def flash_decode_paged(q, k_pool, v_pool, bt, kv_len):
+    """q (b, 1, h, hd); pools (rows, pg, kv, hd); bt (b, ncols) int32 pool
+    rows of each slot's logical pages -> (b, 1, h, hd).
+
+    The slot's key j is ``pool[bt[slot, j // pg], j % pg]``; ``kv_len``
+    counts keys over the logical length ``S = ncols * pg``.  The kernel on a
+    CUDA tensor, the plain version on a CPU tensor.  ``bt``'s entries must
+    be rows of the pools (the page tables of ``models/decode.py`` guarantee
+    it; the kernel does not check).  Pools may be views of a stacked unit
+    cache (``take``), as long as each is contiguous.  No backward.
+    """
+    global paged_launches
+    refuse_grad("flash_decode_paged", q, k_pool, v_pool)
+    if q.device.type == "cpu":
+        return flash_decode_paged_ref(q, k_pool, v_pool, bt, kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_decode_paged for device {q.device}")
+    _check_paged(q, k_pool, v_pool, bt)
+    b, _, h, hd = q.shape
+    rows, pg, kvh, _ = k_pool.shape
+    ncols = bt.shape[1]
+    kvl = _kv_len_vector(kv_len, b, q.device)
+    o = torch.empty_like(q)
+    lib = _build.load("flash_decode", _ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_decode_paged(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(),
+            kvl.data_ptr(), o.data_ptr(), b, rows, pg, ncols, h, kvh, hd,
+            DTYPES[q.dtype], hd ** -0.5, stream)
+    _build.check(lib, err, "flash_decode_paged")
+    paged_launches += 1
     return o

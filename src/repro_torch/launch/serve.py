@@ -1,15 +1,27 @@
-"""Serving launcher, offline mode: a static batch through the fused prefill
-and lockstep decode, on the H100 by default.
+"""Serving launcher: offline batched decoding or streaming continuous
+batching, on the H100 by default.
+
+Offline (a static batch through the fused prefill and lockstep decode):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --batch 8 --prompt-len 128 --gen 32 --temperature 0
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --reduced --device cpu
 
-Counterpart of the offline mode of ``repro/launch/serve.py``.  Weights are
-random, made from ``--seed``; prefill and decode attention run on the Hopper
-kernels (``repro_torch/kernels``).  Without CUDA it raises unless
-``--device cpu`` is given.
+Streaming (continuous batching under Table I arrivals with per-request
+deadlines: ``measured_cost_model``, then ``ContinuousBatchingServer`` over a
+fixed-slot ``SlotRunner``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+        --streaming --dist S1 --horizon 8 --max-batch 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --streaming
+
+Counterpart of ``repro/launch/serve.py``.  Weights are random, made from
+``--seed``; prefill and decode attention run on the Hopper kernels
+(``repro_torch/kernels``).  Without CUDA it raises unless ``--device cpu``
+is given.  Paged serving has no flags here, as in the reference: it is
+reached through the ``SlotRunner``/``Scheduler`` API (``repro_torch.serve``).
 """
 from __future__ import annotations
 
@@ -96,10 +108,67 @@ def run_offline(args) -> Dict[str, Any]:
             "prefill_s": t_prefill, "decode_s": t_decode}
 
 
+def run_streaming(args) -> Dict[str, Any]:
+    """Continuous batching of a Table I request trace on the real model.
+
+    Returns the request records, the summary, the cost model and the
+    runner (its ``generated`` tokens by request id)."""
+    from repro_torch.serve import (ContinuousBatchingServer, RequestStream,
+                                   SlotRunner, measured_cost_model)
+    cfg, ctx, params, _, _ = setup(args)
+    pattern = cfg.pattern_for_long_context() if args.long_context else None
+    cache_len = args.prompt_len + args.gen
+    cost = measured_cost_model(params, cfg, ctx, args.max_batch, cache_len,
+                               args.prompt_len, pattern=pattern)
+    runner = SlotRunner(params, cfg, ctx, args.max_batch, cache_len,
+                        pattern=pattern, temperature=args.temperature,
+                        seed=args.seed)
+    stream = RequestStream(dist=args.dist, n_clients=args.clients,
+                           prompt_len=args.prompt_len,
+                           max_new_tokens=args.gen,
+                           slo_ttft_s=args.slo_ttft, seed=args.seed)
+    requests = stream.generate(args.horizon)
+    tracker = None
+    if args.track:
+        from repro_torch.obs import JsonTracker
+        tracker = JsonTracker(
+            args.track, seed=args.seed,
+            meta={"entry": "repro_torch.launch.serve --streaming",
+                  "arch": cfg.name, "dist": args.dist,
+                  "clients": args.clients, "max_batch": args.max_batch,
+                  "device": str(runner.device)})
+    recs, summary = ContinuousBatchingServer(
+        args.max_batch, cost, runner=runner, tracker=tracker).run(requests)
+    if tracker is not None:
+        tracker.finish()
+        print(f"# run ledger -> {args.track}")
+    print(f"arch={cfg.name} dist={args.dist} clients={args.clients} "
+          f"requests={summary['n_requests']} "
+          f"decode_step={cost.decode_step_s * 1e3:.3f}ms "
+          f"prefill={cost.prefill_s(args.prompt_len) * 1e3:.3f}ms "
+          f"device={runner.device}")
+    for k in ("completed", "deadline_met", "dropped", "slo_attainment",
+              "ttft_p50_s", "ttft_p95_s", "ttft_p99_s", "tpot_p50_s",
+              "throughput_tok_s", "goodput_tok_s"):
+        v = summary[k]
+        print(f"  {k} = {v:.4f}" if isinstance(v, float) else f"  {k} = {v}")
+    done = [r for r in recs if r.completed]
+    if done:
+        print("sample:", runner.generated[done[0].rid][:16])
+    return {"cfg": cfg, "records": recs, "summary": summary, "cost": cost,
+            "runner": runner}
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--reduced", action="store_true")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--offline", action="store_true",
+                      help="static batch, fused prefill + lockstep decode "
+                           "(default)")
+    mode.add_argument("--streaming", action="store_true",
+                      help="continuous batching under Table I arrivals")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=64)
@@ -108,11 +177,25 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    # streaming knobs
+    ap.add_argument("--dist", default="S1", help="Table I distribution")
+    ap.add_argument("--clients", type=int, default=16)
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--horizon", type=float, default=8.0,
+                    help="arrival window (sim seconds)")
+    ap.add_argument("--slo-ttft", type=float, default=0.75)
+    ap.add_argument("--track", metavar="LEDGER",
+                    help="write a JSONL run ledger (request lifecycle events "
+                         "+ scorecard) to this path")
     return ap.parse_args(argv)
 
 
 def main(argv=None):
-    run_offline(parse_args(argv))
+    args = parse_args(argv)
+    if args.streaming:
+        run_streaming(args)
+    else:
+        run_offline(args)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Attention entry points of the serving path.
 
 Counterpart of ``repro/models/attention.py``'s ``chunked_attention`` and
-``decode_attention``.  ``backend="kernel"`` (the default) goes through the
+``decode_attention``, plus :func:`paged_decode_attention`, the dispatch the
+reference's paged decode makes inline (``models/decode.py::_block_decode``).  ``backend="kernel"`` (the default) goes through the
 kernel wrappers in ``repro_torch/kernels/`` (the Hopper kernel on CUDA
 tensors, its plain version on CPU tensors), as the reference's
 ``backend="pallas"`` goes through its Pallas kernels; ``backend="torch"``
@@ -11,7 +12,9 @@ from __future__ import annotations
 
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
-from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
+from repro_torch.kernels.flash_decode import (flash_decode, flash_decode_paged,
+                                              flash_decode_paged_ref,
+                                              flash_decode_ref)
 
 BACKENDS = ("kernel", "torch")
 
@@ -44,4 +47,17 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, backend: str = "kernel"):
         return flash_decode(q, k_cache, v_cache, kv_len)
     if backend == "torch":
         return flash_decode_ref(q, k_cache, v_cache, kv_len)
+    raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+
+
+def paged_decode_attention(q, k_pool, v_pool, bt, kv_len, *,
+                           backend: str = "kernel"):
+    """Single-token attention through a block table.  q (b, 1, h, hd); pools
+    (rows, pg, kv, hd); bt (b, ncols) int32.  ``"kernel"`` resolves the table
+    inside the kernel; ``"torch"`` gathers ``pool[bt]`` into the contiguous
+    view first, as the reference's jax path does."""
+    if backend == "kernel":
+        return flash_decode_paged(q, k_pool, v_pool, bt, kv_len)
+    if backend == "torch":
+        return flash_decode_paged_ref(q, k_pool, v_pool, bt, kv_len)
     raise ValueError(f"backend {backend!r} not in {BACKENDS}")

@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, nothing of ``repro``; CUDA by default.
 
 * An AST scan of every module of ``src/repro_torch`` (serving, ``optim``,
-  ``core``, ``train``, ``data``) and of ``chip_smoke.py`` finds no import
-  of ``jax`` or of the ``repro`` package.
+  ``core``, ``train``, ``data``, and the serving runtime: ``serve``,
+  ``sim``, ``obs``, ``core/streams.py``, ``models/paging.py``) and of
+  ``chip_smoke.py`` finds no import of ``jax`` or of the ``repro`` package.
 * Every entry point runs on ``cuda`` unless asked for the CPU, and raises
   where there is no card (these tests skip on a machine that has one);
   every kernel wrapper runs its plain version for CPU tensors only.
@@ -44,6 +45,15 @@ def test_scan_covers_the_training_subpackages():
                for p in PORT_FILES[:-1]}
     assert {"optim", "core", "train", "data", "kernels",
             "models"} <= scanned
+
+
+def test_scan_covers_the_serving_runtime():
+    scanned = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in PORT_FILES[:-1]}
+    for sub in ("serve", "sim", "obs"):
+        assert any(name.startswith(sub + "/") for name in scanned), sub
+    assert {"core/streams.py", "models/paging.py", "serve/engine.py",
+            "serve/scheduler.py", "obs/tracker.py"} <= scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -127,8 +137,8 @@ def test_training_entry_points_default_to_cuda(no_card):
 
 
 @pytest.mark.parametrize("wrapper", ["flash_attention", "flash_decode",
-                                     "block_topk", "fused_sgdm",
-                                     "scatter_aggregate"])
+                                     "flash_decode_paged", "block_topk",
+                                     "fused_sgdm", "scatter_aggregate"])
 def test_kernel_wrappers_run_plain_only_on_cpu(wrapper):
     """Every kernel wrapper takes its plain version for CPU tensors only:
     a tensor elsewhere (here the meta device) gets an error, never the
@@ -141,6 +151,9 @@ def test_kernel_wrappers_run_plain_only_on_cpu(wrapper):
     calls = {
         "flash_attention": lambda: fa.flash_attention(x, x, x),
         "flash_decode": lambda: fd.flash_decode(x[:, :1], x, x, 8),
+        "flash_decode_paged": lambda: fd.flash_decode_paged(
+            x[:, :1], x, x, torch.zeros((1, 2), dtype=torch.int32,
+                                        device="meta"), 8),
         "block_topk": lambda: bt.block_topk(x.reshape(4, 128), 8),
         "fused_sgdm": lambda: bt.fused_sgdm(x, x, x, 0.1),
         "scatter_aggregate": lambda: sa.scatter_aggregate(
@@ -148,6 +161,29 @@ def test_kernel_wrappers_run_plain_only_on_cpu(wrapper):
     }
     with pytest.raises(ValueError, match="device"):
         calls[wrapper]()
+
+
+def test_serving_runtime_entry_points_default_to_cuda(no_card):
+    """The paged cache, the slot runner, the cost model and the streaming
+    launcher run on the card by default and raise here."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import RunCtx, init_paged_cache
+    from repro_torch.serve import SlotRunner, measured_cost_model
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = None                      # never reached: the device check
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_paged_cache(cfg, 2, 16, RunCtx(), page_size=8, num_pages=4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        SlotRunner(params, cfg, RunCtx(), 2, 16)
+    with pytest.raises(RuntimeError, match="cuda"):
+        SlotRunner(params, cfg, RunCtx(), 2, 16, page_size=8, num_pages=4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        measured_cost_model(params, cfg, RunCtx(), 2, 16, 8)
+    args = serve.parse_args(["--streaming"])
+    assert args.streaming and args.device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--reduced", "--streaming", "--horizon", "0.5"])
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch):
