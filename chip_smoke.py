@@ -72,6 +72,13 @@ package.  Phases, each fatal on failure (exit code 1, no result line):
    and ``measured_cost_model``;
 10. print one JSON line of kernels, then the result line.
 
+Phase 2 also fails if any instance of the decode kernel
+(``flash_decode_kernel``) spills registers.  Phase 4 also checks the
+split-K decode: kv_len at every split edge of a 16 384-token context (f32,
+bf16; contiguous, pages of 16 and of 5); an S the split does not divide;
+g 16 at hd 64 and 256; each call repeated bit for bit.  Phase 9 times both
+decode entries at the serving shape and at S = kv_len = 16 384.
+
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": 1}}``.
 """
@@ -170,6 +177,33 @@ def build(build_mod) -> None:
             for line in report.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"#   {lib.name}: {line.strip()}")
+    check_no_spills(build_mod.lib_path("flash_decode").with_suffix(".log"),
+                    "flash_decode_kernel")
+
+
+def check_no_spills(report: Path, kernel: str) -> None:
+    """Fail if ptxas reports a spill for any instance of ``kernel`` in a
+    library's build log (``-Xptxas -v``: a "Function properties for
+    <name>" line, then its stack frame and spill bytes)."""
+    if not report.exists():
+        fail(f"no ptxas report {report.name} beside the library")
+    name, n, spilled, regs = "", 0, [], []
+    for line in report.read_text().splitlines():
+        if "Function properties for" in line:
+            name = line.rsplit(" ", 1)[-1]
+        elif kernel not in name:
+            continue
+        elif "spill stores" in line:
+            n += 1
+            if " 0 bytes spill stores, 0 bytes spill loads" not in line:
+                spilled.append(f"{name}: {line.strip()}")
+        elif "Used" in line and "registers" in line:
+            regs.append(int(line.split("Used")[1].split()[0]))
+    log(f"#   {kernel}: {n} instances, {len(spilled)} with spills, "
+        f"{min(regs, default=0)}-{max(regs, default=0)} registers")
+    if n == 0 or spilled:
+        fail(f"{kernel} spills registers (or ptxas reported no instance): "
+             f"{spilled[:4]}")
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +272,18 @@ def check_kernels(torch, fa, fd):
         ("hd128 g6", 3, 77, 48, 8, 128, [77, 5, 40], "float32"),
         ("hd256 g10", 2, 64, 10, 1, 256, [64, 33], "float32"),
         ("hd32 g1", 2, 50, 4, 4, 32, [50, 9], "bfloat16"),
+        # the split-K geometry: kv_len at the split edges of a long context
+        ("S 16384, split edges", 10, 16384, 14, 2, 64,
+         split_lens(fd, 10, 2, 16384), "float32"),
+        ("S 16384, split edges", 10, 16384, 14, 2, 64,
+         split_lens(fd, 10, 2, 16384), "bfloat16"),
+        ("S 16484, not a multiple of the split", 10, 16484, 14, 2, 64,
+         split_lens(fd, 10, 2, 16484), "float32"),
+        ("S 1000, 8 splits of 128", 3, 1000, 14, 2, 64, [1000, 129, 0],
+         "float32"),
+        ("g 16, hd 64", 4, 700, 32, 2, 64, [700, 1, 333, 0], "float32"),
+        ("g 16, hd 256", 2, 300, 16, 1, 256, [300, 97], "float32"),
+        ("g 16, hd 256", 2, 300, 16, 1, 256, [300, 97], "bfloat16"),
     ]
     for (label, b, S, h, kv, hd, lens, dt) in dec_cases:
         q = rand(torch, (b, 1, h, hd), dts[dt], gen)
@@ -247,11 +293,32 @@ def check_kernels(torch, fa, fd):
         out = fd.flash_decode(q, kc, vc, kvl)
         ref = fd.flash_decode_ref(q, kc, vc, kvl)
         compare(torch, f"flash_decode {label} q{(b, 1, h, hd)} "
-                f"cache{(b, S, kv, hd)} kv_len={lens} {dt}", out, ref, dt,
+                f"cache{(b, S, kv, hd)} kv_len={lens} {dt} split "
+                f"{fd.split_geometry(b, kv, S)}", out, ref, dt,
                 errs["flash_decode"])
+        same_twice(torch, out, lambda: fd.flash_decode(q, kc, vc, kvl))
+        del q, kc, vc, out, ref
     errs["flash_decode_paged"] = check_paged(torch, fd, gen, dts)
     return {name: max(e for d, e in es if d == "float32")
             for name, es in errs.items()}
+
+
+def split_lens(fd, b, kvh, S):
+    """kv_len values at the split edges of (b, kvh, S), b of them (b >= 10):
+    0, 1, the first split size - 1, it, + 1, the second boundary - 1 and
+    + 1, a mid value, S - 1 and S, then full rows."""
+    _, kps = fd.split_geometry(b, kvh, S)
+    lens = [0, 1, kps - 1, kps, kps + 1, 2 * kps - 1, 2 * kps + 1,
+            S // 2 + 7, S - 1, S]
+    return (lens + [S] * b)[:b]
+
+
+def same_twice(torch, out, again):
+    """A second call on the same inputs gives the same bits."""
+    second = again()
+    torch.cuda.synchronize()
+    if not same_bits(torch, out, second):
+        fail("two calls on the same inputs differ")
 
 
 def block_table(torch, kind, b, ncols, rows, gen):
@@ -293,6 +360,16 @@ def check_paged(torch, fd, gen, dts):
          "scrambled"),
         ("hd 128, g 4", 3, 8, 10, 40, 8, 2, 128, [80, 41, 7], "float32",
          "scrambled"),
+        # the split geometry through pages of 16 and 5 (S 16385: 3277
+        # pages of 5; no whole number of 5-token pages makes 16384)
+        ("S 16384, pages of 16", 10, 16, 1024, 10280, 14, 2, 64,
+         split_lens(fd, 10, 2, 16384), "float32", "scrambled"),
+        ("S 16384, pages of 16", 10, 16, 1024, 10280, 14, 2, 64,
+         split_lens(fd, 10, 2, 16384), "bfloat16", "scrambled"),
+        ("S 16385, pages of 5", 10, 5, 3277, 33000, 14, 2, 64,
+         split_lens(fd, 10, 2, 16385), "float32", "scrambled"),
+        ("g 16, hd 256", 2, 16, 20, 45, 16, 1, 256, [320, 97], "float32",
+         "scrambled"),
     ]
     errs = []
     for (label, b, pg, ncols, rows, h, kv, hd, lens, dt, table) in cases:
@@ -308,12 +385,15 @@ def check_paged(torch, fd, gen, dts):
                 f"kv_len={lens} {dt}", out, ref, dt, errs)
         S = ncols * pg
         view = [pool[bt.long()].reshape(b, S, kv, hd) for pool in (kp, vp)]
-        same = torch.equal(out, fd.flash_decode(q, *view, kvl))
+        same = same_bits(torch, out, fd.flash_decode(q, *view, kvl))
         log(f"    bit-identical to flash_decode on the gathered view: "
             f"{same}")
         if not same:
             fail("flash_decode_paged differs from flash_decode on the same "
                  "keys")
+        same_twice(torch, out,
+                   lambda: fd.flash_decode_paged(q, kp, vp, bt, kvl))
+        del q, kp, vp, bt, out, ref, view
     return errs
 
 
@@ -1025,40 +1105,68 @@ def time_kernels(torch, fa, fd):
         4 * (2 * q.numel() + k.numel() + v.numel()), 4 * hd * pairs,
         "float32")
 
-    S, kv_len = 160, 160                       # the last offline step
-    qd = torch.randn((b, 1, h, hd), generator=gen, device=DEVICE)
-    kc = torch.randn((b, S, kv, hd), generator=gen, device=DEVICE)
-    vc = torch.randn((b, S, kv, hd), generator=gen, device=DEVICE)
-    kvl = torch.full((b,), kv_len, dtype=torch.int32, device=DEVICE)
-    qdt, kct, vct = (x.transpose(1, 2).contiguous() for x in (qd, kc, vc))
-    dec = time_fns(
-        torch, lambda: fd.flash_decode(qd, kc, vc, kvl),
-        lambda: fd.flash_decode_ref(qd, kc, vc, kvl),
-        lambda: F.scaled_dot_product_attention(qdt, kct, vct,
-                                               enable_gqa=True))
-    dec["bound_ms"], dec["bound_by"] = bound(
-        4 * (2 * qd.numel() + 2 * b * kv_len * kv * hd) + 4 * b,
-        4 * hd * b * h * kv_len, "float32")
+    return {"flash_attention": attn, **time_decode(torch, fd, gen)}
 
-    # paged, at phase 4's serving shape: pages of 16, 12 columns, 80 rows
-    pg, ncols, rows = 16, 12, 80
-    kp = torch.randn((rows, pg, kv, hd), generator=gen, device=DEVICE)
-    vp = torch.randn((rows, pg, kv, hd), generator=gen, device=DEVICE)
-    bt = block_table(torch, "scrambled", b, ncols, rows, gen)
 
-    def gather_sdpa():                 # two calls: pool[bt] gather + SDPA
-        view = [pool[bt.long()].reshape(b, ncols * pg, kv, hd)[:, :kv_len]
-                .transpose(1, 2) for pool in (kp, vp)]
-        return F.scaled_dot_product_attention(qdt, *view, enable_gqa=True)
+LONG_S = 16384          # phase 9's long context: K+V 134 MB at b 8, f32
 
-    paged = time_fns(
-        torch, lambda: fd.flash_decode_paged(qd, kp, vp, bt, kvl),
-        lambda: fd.flash_decode_paged_ref(qd, kp, vp, bt, kvl), gather_sdpa)
-    paged["bound_ms"], paged["bound_by"] = bound(
-        4 * (2 * qd.numel() + 2 * b * kv_len * kv * hd) + 4 * b
-        + 4 * bt.numel(), 4 * hd * b * h * kv_len, "float32")
-    return {"flash_attention": attn, "flash_decode": dec,
-            "flash_decode_paged": paged}
+
+def time_decode(torch, fd, gen):
+    """``flash_decode`` and ``flash_decode_paged`` at the serving shape (the
+    offline run's last step, S 160; paged: pages of 16, 12 columns, 80
+    rows) and at the long context (S = kv_len = LONG_S; paged: pages of 16,
+    1024 columns, scrambled rows), b 8, h 14, kv 2, hd 64, f32: kernel,
+    plain and library device times beside the bound.  The long shape's
+    K+V is past the 50 MB L2, so its timing loop reads from HBM."""
+    import torch.nn.functional as F
+    b, h, kv, hd, pg = 8, 14, 2, 64, 16
+    times = {"flash_decode": {}, "flash_decode_paged": {}}
+    for S, pre in ((160, ""), (LONG_S, "long_")):
+        kv_len = S
+        qd = torch.randn((b, 1, h, hd), generator=gen, device=DEVICE)
+        kc = torch.randn((b, S, kv, hd), generator=gen, device=DEVICE)
+        vc = torch.randn((b, S, kv, hd), generator=gen, device=DEVICE)
+        kvl = torch.full((b,), kv_len, dtype=torch.int32, device=DEVICE)
+        qdt, kct, vct = (x.transpose(1, 2).contiguous()
+                         for x in (qd, kc, vc))
+        dec = time_fns(
+            torch, lambda: fd.flash_decode(qd, kc, vc, kvl),
+            lambda: fd.flash_decode_ref(qd, kc, vc, kvl),
+            lambda: F.scaled_dot_product_attention(qdt, kct, vct,
+                                                   enable_gqa=True))
+        kv_bytes = 4 * 2 * b * kv_len * kv * hd
+        dec["bound_ms"], dec["bound_by"] = bound(
+            4 * 2 * qd.numel() + kv_bytes + 4 * b, 4 * hd * b * h * kv_len,
+            "float32")
+        del kc, vc, kct, vct
+
+        ncols, rows = (12, 80) if pre == "" else (S // pg, b * S // pg)
+        kp = torch.randn((rows, pg, kv, hd), generator=gen, device=DEVICE)
+        vp = torch.randn((rows, pg, kv, hd), generator=gen, device=DEVICE)
+        bt = block_table(torch, "scrambled", b, ncols, rows, gen)
+
+        def gather_sdpa():             # two calls: pool[bt] gather + SDPA
+            view = [pool[bt.long()].reshape(b, ncols * pg, kv, hd)[:, :kv_len]
+                    .transpose(1, 2) for pool in (kp, vp)]
+            return F.scaled_dot_product_attention(qdt, *view,
+                                                  enable_gqa=True)
+
+        paged = time_fns(
+            torch, lambda: fd.flash_decode_paged(qd, kp, vp, bt, kvl),
+            lambda: fd.flash_decode_paged_ref(qd, kp, vp, bt, kvl),
+            gather_sdpa)
+        paged["bound_ms"], paged["bound_by"] = bound(
+            4 * 2 * qd.numel() + kv_bytes + 4 * b + 4 * bt.numel(),
+            4 * hd * b * h * kv_len, "float32")
+        del kp, vp, bt
+        for name, t in (("flash_decode", dec), ("flash_decode_paged", paged)):
+            if pre:
+                t.pop("call_ms")
+                t["shape"] = (f"b {b}, h {h}, kv {kv}, hd {hd}, S = kv_len "
+                              f"= {S}, f32, K+V {kv_bytes / 1e6:.1f} MB")
+            times[name].update({pre + key: val for key, val in t.items()})
+        torch.cuda.empty_cache()
+    return times
 
 
 def time_paged_steps(torch, serve, dec, rt, card, steps=8):
@@ -1405,6 +1513,13 @@ def main() -> None:
         log(f"  {name}: device {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
             f"ms, library {lib}, bound {t['bound_ms']:.5f} ms "
             f"({t['bound_by']}); {extra}  [{card}]")
+        if "long_ms" in t:
+            log(f"  {name} at {t['long_shape']}: device {t['long_ms']:.4f} "
+                f"ms, plain {t['long_plain_ms']:.4f} ms, library "
+                f"{t['long_library_ms']:.4f} ms, bound "
+                f"{t['long_bound_ms']:.5f} ms ({t['long_bound_by']}), "
+                f"{100 * t['long_bound_ms'] / t['long_ms']:.1f}% of it  "
+                f"[{card}]")
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launched[name],
                         "max_abs_err": errs[name], **t})

@@ -18,6 +18,9 @@ addresses a K/V row; the source's header says what bounds it and how.
 * :func:`flash_decode_paged_ref` — the reference's own oracle of the paged
   kernel: gather ``pool[bt]`` into the contiguous view, then
   :func:`flash_decode_ref`.
+* :func:`split_geometry` — the kernel's split rule, (number of splits, keys
+  per split) as a function of (b, kv, S); its one copy: the wrappers pass
+  its result to the kernel, which checks it and holds no rule of its own.
 
 q (b, 1, h, hd); caches (b, S, kv, hd), fixed-slot rows or SWA rings; pools
 (rows, pg, kv, hd) behind a (b, ncols) int32 block table; ``kv_len`` a
@@ -34,6 +37,10 @@ from repro_torch.kernels._common import (DTYPES, NEG_INF, check_launch,
                                          refuse_grad)
 
 MAX_GROUP = 16          # query heads per kv head the kernel takes
+SPLIT_UNIT = 64         # keys; every split boundary is a multiple
+MAX_SPLIT = 8           # splits per (slot, kv head): the cluster size
+TARGET_BLOCKS = 96      # blocks the split rule aims for (see the source)
+ALIGN = 16              # bytes: the kernel copies K/V rows 16 at a time
 
 launches = 0  # kernel launches made by flash_decode (not by the plain version)
 paged_launches = 0  # the same for flash_decode_paged
@@ -74,10 +81,37 @@ def flash_decode_paged_ref(q, k_pool, v_pool, bt, kv_len):
                             v_pool[rows].reshape(b, S, kvh, hd), kv_len)
 
 
-_ARGTYPES = {"flash_decode": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+def split_geometry(b: int, kvh: int, S: int) -> tuple:
+    """(nsplit, keys_per_split) of the kernel's split-K at logical length
+    S: a function of (b, kv, S) only, so the paged entry (S = ncols * pg)
+    and the contiguous one split equal S alike.  Split r covers keys
+    [r * keys_per_split, min((r + 1) * keys_per_split, S)); boundaries are
+    multiples of SPLIT_UNIT, and no split starts at or past S."""
+    if b <= 0 or kvh <= 0 or S <= 0:
+        raise ValueError(f"no split of b={b} kv={kvh} S={S}")
+    units = -(-S // SPLIT_UNIT)
+    want = -(-TARGET_BLOCKS // (b * kvh))
+    n = max(1, min(want, MAX_SPLIT, units))
+    per = -(-units // n)
+    return -(-units // per), per * SPLIT_UNIT
+
+
+_ARGTYPES = {"flash_decode": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p],
-             "flash_decode_paged": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+             "flash_decode_paged": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_void_p]}
+
+
+def check_aligned(**tensors) -> None:
+    """Raise unless every tensor's data starts on an ALIGN-byte boundary:
+    the kernel reads q and K/V rows in 16-byte pieces and has no other
+    path.  A contiguous view that starts mid-row (a slice of a larger
+    buffer) can break this."""
+    for name, t in tensors.items():
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"{name} starts at {t.data_ptr():#x}, not on a "
+                             f"{ALIGN}-byte boundary: the kernel takes no "
+                             "unaligned tensor")
 
 
 def _check(q, k_cache, v_cache) -> None:
@@ -94,6 +128,7 @@ def _check(q, k_cache, v_cache) -> None:
         raise ValueError(f"{h // kvh} query heads per kv head; the kernel "
                          f"takes at most {MAX_GROUP}")
     check_launch(q, k_cache, v_cache)
+    check_aligned(q=q, k_cache=k_cache, v_cache=v_cache)
 
 
 def flash_decode(q, k_cache, v_cache, kv_len):
@@ -113,13 +148,14 @@ def flash_decode(q, k_cache, v_cache, kv_len):
     S, kvh = k_cache.shape[1], k_cache.shape[2]
     kvl = _kv_len_vector(kv_len, b, q.device)
     o = torch.empty_like(q)
+    check_aligned(o=o)
     lib = _build.load("flash_decode", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_decode(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             kvl.data_ptr(), o.data_ptr(), b, S, h, kvh, hd, DTYPES[q.dtype],
-            hd ** -0.5, stream)
+            *split_geometry(b, kvh, S), hd ** -0.5, stream)
     _build.check(lib, err, "flash_decode")
     launches += 1
     return o
@@ -143,6 +179,7 @@ def _check_paged(q, k_pool, v_pool, bt) -> None:
     if bt.device != q.device or not bt.is_contiguous():
         raise ValueError("bt must be contiguous and on q's device")
     check_launch(q, k_pool, v_pool)
+    check_aligned(q=q, k_pool=k_pool, v_pool=v_pool)
 
 
 def flash_decode_paged(q, k_pool, v_pool, bt, kv_len):
@@ -154,7 +191,8 @@ def flash_decode_paged(q, k_pool, v_pool, bt, kv_len):
     CUDA tensor, the plain version on a CPU tensor.  ``bt``'s entries must
     be rows of the pools (the page tables of ``models/decode.py`` guarantee
     it; the kernel does not check).  Pools may be views of a stacked unit
-    cache (``take``), as long as each is contiguous.  No backward.
+    cache (``take``), as long as each is contiguous and starts on a 16-byte
+    boundary (``check_aligned``).  No backward.
     """
     global paged_launches
     refuse_grad("flash_decode_paged", q, k_pool, v_pool)
@@ -168,13 +206,15 @@ def flash_decode_paged(q, k_pool, v_pool, bt, kv_len):
     ncols = bt.shape[1]
     kvl = _kv_len_vector(kv_len, b, q.device)
     o = torch.empty_like(q)
+    check_aligned(o=o)
     lib = _build.load("flash_decode", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_decode_paged(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(),
             kvl.data_ptr(), o.data_ptr(), b, rows, pg, ncols, h, kvh, hd,
-            DTYPES[q.dtype], hd ** -0.5, stream)
+            DTYPES[q.dtype], *split_geometry(b, kvh, ncols * pg), hd ** -0.5,
+            stream)
     _build.check(lib, err, "flash_decode_paged")
     paged_launches += 1
     return o

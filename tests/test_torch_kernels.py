@@ -141,6 +141,36 @@ def test_flash_decode_bf16():
     _close(out, ref, 2e-2)
 
 
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_decode_group_16(hd):
+    """g = 16 query heads per kv head, the kernel's MAX_GROUP edge, with
+    kv_len of 0, 1, a mid value and past S."""
+    b, S, h, kvh = 4, 70, 32 if hd == 64 else 16, 2 if hd == 64 else 1
+    assert h // kvh == fd.MAX_GROUP
+    qj, qt = _both((b, 1, h, hd), 25)
+    kj, kt = _both((b, S, kvh, hd), 26)
+    vj, vt = _both((b, S, kvh, hd), 27)
+    lens = [0, 1, 33, S + 6]
+    ref = jax_decode(qj, kj, vj, jnp.asarray(lens, jnp.int32))
+    out = fd.flash_decode(qt, kt, vt, torch.tensor(lens, dtype=torch.int32))
+    _close(out, ref, 2e-6)
+
+
+def test_check_aligned_refuses_a_view_off_by_one_element():
+    """The kernel copies K/V rows in 16-byte pieces: the wrapper's check
+    raises on a contiguous view that starts one element into its buffer,
+    and passes the buffer itself."""
+    buf = torch.zeros(2 * 16 * 2 * 64 + 1)
+    whole = buf[:-1].view(2, 16, 2, 64)
+    shifted = buf[1:].view(2, 16, 2, 64)
+    assert shifted.is_contiguous()
+    fd.check_aligned(k_cache=whole)
+    with pytest.raises(ValueError, match="16-byte"):
+        fd.check_aligned(k_cache=shifted)
+    with pytest.raises(ValueError, match="v_pool"):
+        fd.check_aligned(q=whole, v_pool=shifted)
+
+
 # ---------------------------------------------------------------------------
 # dispatch: on CPU tensors the kernel backend is the plain version
 

@@ -126,6 +126,26 @@ def test_paged_plain_matches_reference_oracle(case):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-6)
 
 
+@pytest.mark.parametrize("hd", [64, 256])
+def test_paged_plain_group_16_matches_reference_oracle(hd):
+    """g = 16 query heads per kv head (the kernel's MAX_GROUP) through a
+    scrambled table of 5-token pages, kv_len 0, 1, mid and full."""
+    b, kvh, pg, ncols = 4, 2 if hd == 64 else 1, 5, 9
+    h, S, rows = 16 * kvh, ncols * pg, b * ncols + 2
+    rng = np.random.default_rng(hd)
+    q = rng.standard_normal((b, 1, h, hd)).astype(np.float32)
+    kp = rng.standard_normal((rows, pg, kvh, hd)).astype(np.float32)
+    vp = rng.standard_normal((rows, pg, kvh, hd)).astype(np.float32)
+    bt = _table("scrambled", b, ncols, rows, rng)
+    kvl = np.asarray([0, 1, 23, S], np.int32)
+    ref = jax_decode_attention(
+        jnp.asarray(q), jnp.asarray(kp)[bt].reshape(b, S, kvh, hd),
+        jnp.asarray(vp)[bt].reshape(b, S, kvh, hd), jnp.asarray(kvl))
+    out = flash_decode_paged_ref(*(torch.from_numpy(a)
+                                   for a in (q, kp, vp, bt, kvl)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-6)
+
+
 # ---------------------------------------------------------------------------
 # paged vs fixed in the port, and vs the reference's paged decode
 
