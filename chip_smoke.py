@@ -73,11 +73,18 @@ package.  Phases, each fatal on failure (exit code 1, no result line):
 10. print one JSON line of kernels, then the result line.
 
 Phase 2 also fails if any instance of the decode kernel
-(``flash_decode_kernel``) spills registers.  Phase 4 also checks the
-split-K decode: kv_len at every split edge of a 16 384-token context (f32,
-bf16; contiguous, pages of 16 and of 5); an S the split does not divide;
-g 16 at hd 64 and 256; each call repeated bit for bit.  Phase 9 times both
-decode entries at the serving shape and at S = kv_len = 16 384.
+(``flash_decode_kernel``) or of the prefill kernel (``flash_fwd_wgmma``,
+``flash_fwd_fma``) spills registers.  Phase 4 also checks the split-K
+decode: kv_len at every split edge of a 16 384-token context (f32, bf16;
+contiguous, pages of 16 and of 5); an S the split does not divide; g 16 at
+hd 64 and 256; and the prefill kernel at an 8 192-token causal prompt (f32
+and bf16), a 64-query chunk at its end (q_offset 8 128, f32) and hd 128
+with g 6 at a ragged 200 (f32 and bf16); every attention call repeated bit
+for bit.  Phase 9 times both decode entries at the serving shape and at S
+= kv_len = 16 384, and ``flash_attention`` at the serving shape and at an
+8 192-token prompt, f32 and bf16, its f32 bound at the 3xTF32 rate
+(``time_attention``, which takes the kernel module as an argument, so a
+parent tree's kernel can be timed by the same code).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": 1}}``.
@@ -116,6 +123,9 @@ TRAIN_TOL = {"loss_rel": 1e-6, "gap_abs": 1e-6, "param_abs": 1e-6}
 # bf16 tensor-core operations/s
 HBM_BPS = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+# flash_attention's f32 products run as 3xTF32 on the tensor cores: three
+# TF32 products (495 TFLOP/s dense) for each f32 one
+TF32X3_OPS = 495e12 / 3
 
 DEVICE = "cuda"
 # phase 7c: paged serving behind the Scheduler (a fixed cost model, so the
@@ -179,6 +189,9 @@ def build(build_mod) -> None:
                     log(f"#   {lib.name}: {line.strip()}")
     check_no_spills(build_mod.lib_path("flash_decode").with_suffix(".log"),
                     "flash_decode_kernel")
+    check_no_spills(
+        build_mod.lib_path("flash_attention").with_suffix(".log"),
+        "flash_fwd")
 
 
 def check_no_spills(report: Path, kernel: str) -> None:
@@ -246,6 +259,18 @@ def check_kernels(torch, fa, fd):
         ("causal ragged", 1, 100, 100, 14, 2, 64, "causal", 0, 0, "bfloat16"),
         ("swa hd256", 1, 150, 150, 10, 1, 256, "swa", 64, 0, "float32"),
         ("causal hd32 mha", 2, 256, 256, 4, 4, 32, "causal", 0, 0, "float32"),
+        # the long prompt, and a scheduler chunk at its end
+        ("long prompt", 1, LONG_PROMPT, LONG_PROMPT, 14, 2, 64, "causal", 0,
+         0, "float32"),
+        ("long prompt", 1, LONG_PROMPT, LONG_PROMPT, 14, 2, 64, "causal", 0,
+         0, "bfloat16"),
+        ("chunk at the end", 1, 64, LONG_PROMPT, 14, 2, 64, "causal", 0,
+         LONG_PROMPT - 64, "float32"),
+        # internlm2's grouping (h 48, kv 8, hd 128), ragged
+        ("hd128 g6 ragged", 1, 200, 200, 48, 8, 128, "causal", 0, 0,
+         "float32"),
+        ("hd128 g6 ragged", 1, 200, 200, 48, 8, 128, "causal", 0, 0,
+         "bfloat16"),
     ]
     errs = {"flash_attention": [], "flash_decode": []}
     log("# phase 4: kernels vs plain versions")
@@ -260,6 +285,9 @@ def check_kernels(torch, fa, fd):
         compare(torch, f"flash_attention {label} q{(b, sq, h, hd)} "
                 f"k{(b, sk, kv, hd)} {kind} w={window} off={off} {dt}",
                 out, ref, dt, errs["flash_attention"])
+        same_twice(torch, out, lambda: fa.flash_attention(
+            q, k, v, kind=kind, window=window, q_offset=off))
+        del q, k, v, out, ref
     dec_cases = [
         # (label, b, S, h, kv, hd, kv_len, dtype)
         ("serving decode, lockstep", 8, 160, 14, 2, 64, 129, "float32"),
@@ -1072,10 +1100,16 @@ def call_ms(torch, fn, iters=50):
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: float, n_ops: float, dtype_name: str):
+def bound(n_bytes: float, n_ops: float, dtype_name: str, peak=None):
     t_bytes = n_bytes / HBM_BPS * 1e3
-    t_ops = n_ops / PEAK_OPS[dtype_name] * 1e3
+    t_ops = n_ops / (peak or PEAK_OPS[dtype_name]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def share(t, pre: str) -> str:
+    """The kernel's time as a share of its bound, for the fields of a
+    timing dict that start with ``pre``."""
+    return f"{100 * t[pre + 'bound_ms'] / t[pre + 'ms']:.1f}%"
 
 
 def time_fns(torch, kernel, plain, library):
@@ -1086,29 +1120,62 @@ def time_fns(torch, kernel, plain, library):
 
 
 def time_kernels(torch, fa, fd):
-    """Kernel, plain and library device times at the serving path's shapes:
-    the prefill of the offline run and its last decode step."""
-    import torch.nn.functional as F
+    """Kernel, plain and library device times at the serving path's shapes
+    and at long ones: prefill attention (:func:`time_attention`) and
+    decode (:func:`time_decode`)."""
     gen = torch.Generator(device=DEVICE).manual_seed(99)
-    b, s, h, kv, hd = 8, 128, 14, 2, 64
-    q = torch.randn((b, s, h, hd), generator=gen, device=DEVICE)
-    k = torch.randn((b, s, kv, hd), generator=gen, device=DEVICE)
-    v = torch.randn((b, s, kv, hd), generator=gen, device=DEVICE)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    attn = time_fns(
-        torch, lambda: fa.flash_attention(q, k, v),
-        lambda: fa.flash_attention_ref(q, k, v),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                               enable_gqa=True))
-    pairs = b * h * s * (s + 1) // 2          # unmasked (query, key) pairs
-    attn["bound_ms"], attn["bound_by"] = bound(
-        4 * (2 * q.numel() + k.numel() + v.numel()), 4 * hd * pairs,
-        "float32")
+    return {"flash_attention": time_attention(torch, fa, gen),
+            **time_decode(torch, fd, gen)}
 
-    return {"flash_attention": attn, **time_decode(torch, fd, gen)}
+
+def time_attention(torch, fa, gen):
+    """``flash_attention`` at the offline prefill's shape (b 8, sq = sk =
+    128) and at a long prompt (b 1, sq = sk = LONG_PROMPT), h 14, kv 2, hd
+    64, causal, f32 and bf16: kernel, plain and SDPA device times beside
+    the bound.  The f32 bound counts the unmasked pairs' operations at the
+    3xTF32 rate (the kernel's f32 products run on the tensor cores);
+    ``*cuda_core_bound_ms`` is the same work at the CUDA cores' 67 TFLOP/s,
+    the bound of the kernel's earlier CUDA-core design.  Takes the kernel
+    module as an argument, so a parent tree's module can be timed by the
+    same code."""
+    import torch.nn.functional as F
+    h, kv, hd = 14, 2, 64
+    out = {}
+    for (b, s, pre) in ((8, 128, ""), (1, LONG_PROMPT, "long_")):
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            q, k, v = (torch.randn((b, s, n, hd), generator=gen,
+                                   device=DEVICE).to(dtype)
+                       for n in (h, kv, kv))
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            t = time_fns(
+                torch, lambda: fa.flash_attention(q, k, v),
+                lambda: fa.flash_attention_ref(q, k, v),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True))
+            n_ops = 4 * hd * b * h * s * (s + 1) // 2   # unmasked pairs
+            n_bytes = q.element_size() * (2 * q.numel() + k.numel()
+                                          + v.numel())
+            t["bound_ms"], t["bound_by"] = bound(n_bytes, n_ops, dt)
+            if dt == "float32":
+                t["cuda_core_bound_ms"] = t["bound_ms"]
+                t["bound_ms"], t["bound_by"] = bound(
+                    n_bytes, n_ops, dt, peak=TF32X3_OPS)
+                if t["bound_by"] == "operations":
+                    t["bound_by"] += ", 3xTF32"
+            if pre:
+                t.pop("call_ms")
+                t["shape"] = (f"b {b}, sq = sk = {s}, h {h}, kv {kv}, hd "
+                              f"{hd}, causal")
+            key = pre + ("" if dt == "float32" else "bf16_")
+            out.update({key + name: val for name, val in t.items()})
+            del q, k, v, qt, kt, vt
+            torch.cuda.empty_cache()
+    return out
 
 
 LONG_S = 16384          # phase 9's long context: K+V 134 MB at b 8, f32
+LONG_PROMPT = 8192      # phase 9's long prompt (qwen2-0.5b's context: 32 768)
 
 
 def time_decode(torch, fd, gen):
@@ -1520,6 +1587,21 @@ def main() -> None:
                 f"{t['long_bound_ms']:.5f} ms ({t['long_bound_by']}), "
                 f"{100 * t['long_bound_ms'] / t['long_ms']:.1f}% of it  "
                 f"[{card}]")
+        if "cuda_core_bound_ms" in t:
+            log(f"  {name} f32 share of its bound: {share(t, '')} "
+                f"(the 67 TFLOP/s CUDA-core bound: "
+                f"{100 * t['cuda_core_bound_ms'] / t['ms']:.1f}%); long "
+                f"{share(t, 'long_')} (CUDA-core bound "
+                f"{100 * t['long_cuda_core_bound_ms'] / t['long_ms']:.1f}%)"
+                f"  [{card}]")
+        for pre in ("bf16_", "long_bf16_"):
+            if pre + "ms" in t:
+                log(f"  {name} bf16{' long' if 'long' in pre else ''}: "
+                    f"device {t[pre + 'ms']:.4f} ms, plain "
+                    f"{t[pre + 'plain_ms']:.4f} ms, library "
+                    f"{t[pre + 'library_ms']:.4f} ms, bound "
+                    f"{t[pre + 'bound_ms']:.5f} ms ({t[pre + 'bound_by']}),"
+                    f" {share(t, pre)} of it  [{card}]")
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launched[name],
                         "max_abs_err": errs[name], **t})

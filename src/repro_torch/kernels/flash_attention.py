@@ -2,11 +2,15 @@
 
 Counterpart of ``repro/kernels/flash_attention.py`` (the TPU kernel
 ``flash_attention_fwd``).  The kernel is ``csrc/flash_attention.cu``, written
-by hand for Hopper (sm_90a); the source's header says what bounds it and how.
+by hand for Hopper (sm_90a): wgmma on the tensor cores (bf16; 3xTF32 for
+f32) fed by a TMA ring; the source's header says what bounds it and how.
 
 * :func:`flash_attention` — the wrapper.  For CPU tensors it runs the plain
   version; for CUDA tensors it launches the kernel or raises, never falls
   back.  ``launches`` counts its kernel launches.
+* :func:`query_tile` — queries per block, chosen per call from sq and
+  passed to the kernel.  The wrapper refuses tensors TMA cannot read
+  (``check_aligned``: 16-byte bases and strides).
 * :func:`flash_attention_ref` — the plain PyTorch version: one masked
   softmax over all keys with f32 scores, the finite ``NEG_INF`` and the
   ``max(l, 1e-30)`` floor of the kernel.  It shares no tiling with the
@@ -23,8 +27,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import (DTYPES, NEG_INF, check_launch,
-                                         refuse_grad)
+from repro_torch.kernels._common import (DTYPES, NEG_INF, check_aligned,
+                                         check_launch, refuse_grad)
 
 KINDS = {"causal": 0, "swa": 1, "bidir": 2}
 
@@ -54,8 +58,19 @@ def flash_attention_ref(q, k, v, *, kind: str = "causal", window: int = 0,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
 
+def query_tile(sq: int, hd: int, dtype) -> int:
+    """Queries per block: 128 (two consumer warpgroups of 64 rows) unless
+    the call has at most 64 queries, where a second warpgroup would idle.
+    f32 at hd 128 takes 64 only (its Q planes fill shared memory), as does
+    f32 at hd 256 (the FMA body, `flash_fwd_fma`)."""
+    if dtype == torch.float32 and hd >= 128:
+        return 64
+    return 128 if sq > 64 else 64
+
+
 _ARGTYPES = {"flash_attention_fwd": [ctypes.c_void_p] * 4
-             + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]}
+             + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int,
+                                      ctypes.c_void_p]}
 
 
 def _check(q, k, v, kind: str) -> None:
@@ -68,6 +83,7 @@ def _check(q, k, v, kind: str) -> None:
     if k.shape[0] != b or k.shape[3] != hd or h % k.shape[2]:
         raise ValueError(f"q{tuple(q.shape)} does not match k{tuple(k.shape)}")
     check_launch(q, k, v)
+    check_aligned(q=q, k=k, v=v)
 
 
 def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
@@ -90,13 +106,14 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
     o = torch.empty_like(q)
     if q.numel() == 0:
         return o
+    check_aligned(o=o)
     lib = _build.load("flash_attention", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, sk,
             h, kvh, hd, DTYPES[q.dtype], KINDS[kind], int(window),
-            int(q_offset), hd ** -0.5, stream)
+            int(q_offset), hd ** -0.5, query_tile(sq, hd, q.dtype), stream)
     _build.check(lib, err, "flash_attention_fwd")
     launches += 1
     return o

@@ -33,14 +33,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import (DTYPES, NEG_INF, check_launch,
-                                         refuse_grad)
+from repro_torch.kernels._common import (DTYPES, NEG_INF, check_aligned,
+                                         check_launch, refuse_grad)
 
 MAX_GROUP = 16          # query heads per kv head the kernel takes
 SPLIT_UNIT = 64         # keys; every split boundary is a multiple
 MAX_SPLIT = 8           # splits per (slot, kv head): the cluster size
 TARGET_BLOCKS = 96      # blocks the split rule aims for (see the source)
-ALIGN = 16              # bytes: the kernel copies K/V rows 16 at a time
 
 launches = 0  # kernel launches made by flash_decode (not by the plain version)
 paged_launches = 0  # the same for flash_decode_paged
@@ -100,18 +99,6 @@ _ARGTYPES = {"flash_decode": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p],
              "flash_decode_paged": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_void_p]}
-
-
-def check_aligned(**tensors) -> None:
-    """Raise unless every tensor's data starts on an ALIGN-byte boundary:
-    the kernel reads q and K/V rows in 16-byte pieces and has no other
-    path.  A contiguous view that starts mid-row (a slice of a larger
-    buffer) can break this."""
-    for name, t in tensors.items():
-        if t.data_ptr() % ALIGN:
-            raise ValueError(f"{name} starts at {t.data_ptr():#x}, not on a "
-                             f"{ALIGN}-byte boundary: the kernel takes no "
-                             "unaligned tensor")
 
 
 def _check(q, k_cache, v_cache) -> None:
