@@ -59,6 +59,21 @@ package.  Phases, each fatal on failure (exit code 1, no result line):
    per compressed step and one ``block_topk``; run the same steps from
    the same start on the plain path (plain ``fused_sgdm``, the
    ``index_put_`` chain) and hold loss, gap and params against it;
+8b. run the paper's own iteration, ``repro_torch.core.ScaDLESTrainer``,
+   on the edge MLP at full width (d_in 3 072, hidden 64, 10 classes;
+   197 322 f32 params from seed 0), 16 devices, Table I S1, the example's
+   data (``examples/scadles_streaming.py``): the ScaDLES arm (rate-weighted
+   batches, truncation, adaptive top-k 0.1/0.3, b_max 128) and the DDL arm
+   (fixed batch 64, persistence), then ``jetson-mixed`` fleets under async
+   and semi-sync (k 4), 30 rounds each, on the card and on the CPU from the
+   same params and seeds: every host field of every round identical, loss
+   and final params within SCADLES_TOL, no kernel launched; print the
+   sim-time speedup, accuracies and summaries; then time rounds at the
+   config's defaults (b_max 1024, S2) and async rounds on the carry path:
+   wall ms, host time in buffers and the draw, CUDA-event splits (upload,
+   gradients, compression, aggregation, update), torch.profiler's device
+   busy share, peak memory, and MFU against the K80 peak in sim time and
+   against the card's f32 peak in wall time;
 9. time each kernel's device work (CUDA events around calls queued ahead
    of the card) beside its plain version, its bound and one PyTorch call
    on the same inputs (``scaled_dot_product_attention``, ``torch.topk``
@@ -145,6 +160,17 @@ SERVE_ARGV = ["--arch", "qwen2-0.5b", "--batch", "8", "--prompt-len", "128",
 # requests over eight slots)
 STREAM_ARGV = ["--streaming", "--dist", "S1", "--clients", "16",
                "--max-batch", "8", "--horizon", "2"]
+# phase 8b: the ScaDLES trainer (16 devices as in the paper's example);
+# card against CPU, round by round.  The host side is the same numpy code,
+# so every host field must be identical.  cuBLAS and the CPU's BLAS sum the
+# products in different orders (TF32 off), which moves a round's loss by a
+# few ulps; top-k is discontinuous in its input, so an entry within f32
+# noise of the k-th magnitude may be kept on one side only, moving that
+# parameter by lr * |g_k| (the CPU tests see up to 5.9e-4 against the
+# reference, tests/test_torch_scadles.py)
+SCADLES = {"n_devices": 16, "rounds": 30, "timed_rounds": 12}
+SCADLES_TOL = {"loss_rel": 1e-4, "loss_abs": 1e-6,
+               "param_abs": {False: 1e-5, True: 2e-3}}   # keyed: compressed
 TRAIN = {"arch": "qwen2-0.5b", "batch": 8, "seq": 256, "loss_chunk": 128,
          "cr": 0.1, "momentum": 0.9, "lr": 1e-3, "seed": 0}
 KERNEL_SOURCES = ["flash_attention", "flash_decode", "block_topk",
@@ -1026,6 +1052,238 @@ def train_path(torch, mods):
 
 
 # ---------------------------------------------------------------------------
+# phase 8b: the ScaDLES trainer, the paper's own iteration
+
+
+def scadles_source(n_devices):
+    """The paper example's data (``examples/scadles_streaming.py``): 10
+    class clusters of 192 training images, noise 0.8, seed 0, streamed IID
+    to every device."""
+    from repro_torch.data import ClassClusterData, DeviceDataSource
+    data = ClassClusterData(num_classes=10, train_per_class=192, noise=0.8,
+                            seed=0)
+    return data, DeviceDataSource(data, n_devices, iid=True)
+
+
+def scadles_arms():
+    """The example's two arms: ScaDLES (rate-weighted batches, truncation,
+    adaptive top-k) and conventional DDL (fixed batch 64, persistence)."""
+    from repro_torch.core import PERSISTENCE, TRUNCATION
+    n = SCADLES["n_devices"]
+    return {"scadles": dict(n_devices=n, dist="S1", weighted=True,
+                            policy=TRUNCATION, compression=(0.1, 0.3),
+                            b_max=128, base_lr=0.05),
+            "ddl": dict(n_devices=n, dist="S1", weighted=False,
+                        policy=PERSISTENCE, b_max=128, base_lr=0.05)}
+
+
+def scadles_pair(torch, src, rounds, **cfg_kw):
+    """The same trainer run on the card and on the CPU, from the same
+    initial parameters (drawn on the CPU from the seed) and numpy seeds;
+    returns {device: (trainer, wall s)}."""
+    from repro_torch.core import ScaDLESConfig, ScaDLESTrainer
+    from repro_torch.models.mlp import make_mlp
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        tr = ScaDLESTrainer(make_mlp(), src,
+                            ScaDLESConfig(device=dev, **cfg_kw))
+        t0 = time.perf_counter()
+        tr.run(rounds)
+        torch.cuda.synchronize()
+        out[dev] = (tr, time.perf_counter() - t0)
+    return out
+
+
+def hold_scadles(torch, label, pair):
+    """Every host field of every round identical on the card and the CPU;
+    loss within SCADLES_TOL each round; final params within its bound."""
+    (card, _), (cpu, _) = pair[DEVICE], pair["cpu"]
+    worst = worst_abs = 0.0
+    for c, h in zip(card.history, cpu.history):
+        for key in h:
+            if key not in ("loss", "gap") and c[key] != h[key]:
+                fail(f"phase 8b {label}: round {h['step']} {key} on the card "
+                     f"{c[key]!r} != CPU {h[key]!r}")
+        err = abs(c["loss"] - h["loss"])
+        if not (math.isfinite(c["loss"]) and err <= SCADLES_TOL["loss_rel"]
+                * abs(h["loss"]) + SCADLES_TOL["loss_abs"]):
+            fail(f"phase 8b {label}: round {h['step']} loss {c['loss']} on "
+                 f"the card, {h['loss']} on the CPU")
+        worst = max(worst, err / max(abs(h["loss"]), 1e-30))
+        worst_abs = max(worst_abs, err)
+    if len(card.history) != len(cpu.history):
+        fail(f"phase 8b {label}: round counts differ")
+    d_param = max(max_err(card.params[k].cpu(), cpu.params[k])
+                  for k in cpu.params)
+    bound_p = SCADLES_TOL["param_abs"][card.compressor is not None]
+    if not d_param <= bound_p:
+        fail(f"phase 8b {label}: params differ by {d_param:.3e} (bound "
+             f"{bound_p:g})")
+    return f"{worst:.3e} rel, {worst_abs:.3e} abs", d_param, bound_p
+
+
+def scadles_accuracy(torch, model_predict, params, data):
+    x = torch.from_numpy(data.test_x).to(params["w1"].device)
+    pred = model_predict(params, x).argmax(-1).cpu().numpy()
+    return float((pred == data.test_y).mean())
+
+
+def scadles_path(torch, mods, card):
+    """(a) the paper's two arms and (b) two relaxed fleet policies, each on
+    the card against the CPU; no kernel may launch."""
+    from repro_torch.fleet import FleetConfig
+    from repro_torch.models.mlp import make_mlp
+    rounds = SCADLES["rounds"]
+    n = SCADLES["n_devices"]
+    log(f"# phase 8b: the ScaDLES trainer, {n} devices, the edge MLP at full "
+        f"width (197 322 f32 params), {rounds} rounds on the card against "
+        "the CPU")
+    data, src = scadles_source(n)
+    predict = make_mlp()["predict"]
+    reset(mods)
+    arms = {}
+    for label, kw in scadles_arms().items():
+        pair = scadles_pair(torch, src, rounds, **kw)
+        worst, d_param, bound_p = hold_scadles(torch, label, pair)
+        tr, wall = pair[DEVICE]
+        arms[label] = tr
+        s = tr.summary()
+        log(f"  {label}: sim time {s['sim_time_s']:.3f} s, buffer final "
+            f"{s['buffer_final']:.0f}, peak {s['buffer_peak']:.0f}"
+            + (f", cnc {s['cnc_ratio']:.3f}" if "cnc_ratio" in s else "")
+            + f", final loss {tr.history[-1]['loss']:.6f}, test acc "
+            f"{scadles_accuracy(torch, predict, tr.params, data):.4f} "
+            f"(CPU {scadles_accuracy(torch, predict, pair['cpu'][0].params, data):.4f}); "
+            f"card vs CPU: host fields identical in {rounds} rounds, loss "
+            f"err <= {worst} (bound {SCADLES_TOL['loss_rel']:g} rel + "
+            f"{SCADLES_TOL['loss_abs']:g} abs), params {d_param:.3e} "
+            f"(bound {bound_p:g}); {wall:.2f} s wall on the card, "
+            f"{pair['cpu'][1]:.2f} s on the CPU  [{card}]")
+    sc, dd = arms["scadles"], arms["ddl"]
+    log(f"  Table VI at this scale: sim-time speedup (DDL over ScaDLES) "
+        f"{dd.sim_time_s / sc.sim_time_s:.3f}x; accuracy ScaDLES "
+        f"{scadles_accuracy(torch, predict, sc.params, data):.4f}, DDL "
+        f"{scadles_accuracy(torch, predict, dd.params, data):.4f}; buffer "
+        f"reduction {dd.summary()['buffer_final'] / max(sc.summary()['buffer_final'], 1):.1f}x")
+    log(f"  summaries: scadles {json.dumps(sc.summary())}; ddl "
+        f"{json.dumps(dd.summary())}")
+    for policy, knobs in (("async", {}), ("semi-sync", {"semi_sync_k": 4})):
+        kw = dict(scadles_arms()["scadles"],
+                  fleet=FleetConfig(profile="jetson-mixed", policy=policy,
+                                    **knobs))
+        pair = scadles_pair(torch, src, rounds, **kw)
+        worst, d_param, bound_p = hold_scadles(torch, policy, pair)
+        tr, wall = pair[DEVICE]
+        s = tr.summary()
+        if not (s["fleet_mean_staleness"] > 0 and s["fleet_version"] == rounds):
+            fail(f"phase 8b {policy}: committed no stale gradient ({s})")
+        log(f"  jetson-mixed {policy}{' k 4' if knobs else ''}: sim time "
+            f"{s['sim_time_s']:.3f} s, version {s['fleet_version']:.0f}, "
+            f"part rate {s['fleet_part_rate']:.3f}, mean staleness "
+            f"{s['fleet_mean_staleness']:.3f} (max "
+            f"{s['fleet_max_staleness']:.0f}), n_part/mean_stale/"
+            f"model_version identical in every round; final loss "
+            f"{tr.history[-1]['loss']:.6f}, test acc "
+            f"{scadles_accuracy(torch, predict, tr.params, data):.4f}; loss "
+            f"err <= {worst}, params {d_param:.3e} (bound "
+            f"{bound_p:g}); {wall:.2f} s wall on the card, "
+            f"{pair['cpu'][1]:.2f} s on the CPU  [{card}]")
+    torch.cuda.synchronize()
+    if counts(mods) != expect():
+        fail(f"the trainer launched kernels: {counts(mods)}")
+    log("  no kernel launched on the trainer's path (as the reference: "
+        "exact top-k, inline momentum update)")
+
+
+def time_scadles(torch, card):
+    """(c) Rounds at the config's own defaults (16 devices, b_max 1024, S2,
+    truncation, cr 0.1): wall ms (host clock around synchronised rounds),
+    host time in buffers and the draw, CUDA-event splits of the rest, the
+    device's busy share from torch.profiler, peak memory, MFU two ways;
+    then the same for async rounds on jetson-mixed (the carry path)."""
+    from repro_torch.core import TRUNCATION, ScaDLESConfig, ScaDLESTrainer
+    from repro_torch.fleet import FleetConfig
+    from repro_torch.models.mlp import make_mlp
+    from repro_torch.obs import MemoryTracker
+    n = SCADLES["n_devices"]
+    log(f"# phase 8b: trainer round times on {card}")
+    _, src = scadles_source(n)
+    kw = dict(n_devices=n, dist="S2", weighted=True, policy=TRUNCATION,
+              compression=(0.1, 0.3), b_max=1024, device=DEVICE)
+    for label, fleet in (("lockstep", None),
+                         ("jetson-mixed async (carry path)",
+                          FleetConfig(profile="jetson-mixed",
+                                      policy="async"))):
+        mt = MemoryTracker()
+        tr = ScaDLESTrainer(make_mlp(), src,
+                            ScaDLESConfig(fleet=fleet, tracker=mt, **kw))
+        marks = []
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev, time.perf_counter()))
+
+        tr.on_phase = mark
+        walls, splits = [], []
+        warm = 2
+        for i in range(warm + SCADLES["timed_rounds"]):
+            if i == warm:
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+            torch.cuda.synchronize()
+            marks.clear()
+            mark("start")
+            t0 = time.perf_counter()
+            tr.run(1)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            if i < warm:
+                continue
+            walls.append(wall)
+            at = {name: (ev, t) for name, ev, t in marks}
+            if "grads" not in at:
+                continue                 # an empty commit: no step ran
+            sp = {"host (buffers, draw)": (at["host"][1] - at["start"][1])
+                  * 1e3}
+            names = ["host", "upload", "grads", "compress", "aggregate",
+                     "update"]
+            for a, b in zip(names, names[1:]):
+                sp[b] = at[a][0].elapsed_time(at[b][0])
+            sp["rest (sync, host)"] = wall - sum(sp.values())
+            splits.append(sp)
+        # the trainer's own peak: above what earlier phases still hold
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+        med = sorted(walls)[len(walls) // 2]
+        split = {k: sorted(s[k] for s in splits)[len(splits) // 2]
+                 for k in splits[0]}
+        rounds = [r["data"] for r in mt.of_kind("train_round")
+                  if r["data"]["step_flops"]]
+        flops = rounds[-1]["step_flops"]
+        sim_mfu = sorted(r["mfu"] for r in rounds)[len(rounds) // 2]
+        gb = float(sorted(r["global_batch"] for r in rounds)[len(rounds) // 2])
+        log(f"  {label}: {med:.3f} ms wall a round (median of "
+            f"{len(walls)}; all {', '.join(f'{w:.1f}' for w in walls)}); "
+            "split (host clock for the host phase, CUDA events for the "
+            "rest, medians of "
+            f"{len(splits)} rounds that ran a step): "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+            + f"; batch tensor {n} x 1024 x 3072 f32 = "
+            f"{n * 1024 * 3072 * 4 / 1e6:.1f} MB, global batch {gb:.0f}; "
+            f"peak {peak:.1f} MiB allocated above the {held / 2**30:.2f} "
+            f"GiB held before  [{card}]")
+        log(f"  {label}: step flops {flops:.4g} (counted on meta copies); "
+            f"MFU against the paper's K80 peak in sim time "
+            f"{sim_mfu:.6f} (the reference's metric); on this card "
+            f"{flops / (med / 1e3) / PEAK_OPS['float32']:.6f} of the f32 "
+            f"67 TFLOP/s peak over the round's wall time  [{card}]")
+        report_profile(profiled(torch, lambda: tr.run(1), 3),
+                       f"{label} round", 3, med, card, top=6)
+        del tr
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 9: timing
 
 
@@ -1547,6 +1805,8 @@ def main() -> None:
     serve_streaming(torch, mods, serve, rt)
     launched["flash_decode_paged"] = sched_launched["flash_decode_paged"]
     train_launched, train = train_path(torch, mods)
+    scadles_path(torch, mods, card)
+    time_scadles(torch, card)
     launched.update({name: train_launched[name] for name in
                      ("block_topk", "fused_sgdm", "scatter_aggregate")})
     times = time_train_kernels(torch, mods, train)

@@ -68,6 +68,26 @@ def sgdm_state_from_jax(state_of_numpy, cfg: ModelConfig,
     return {"mom": params_from_jax(state_of_numpy["mom"], cfg, device)}
 
 
+def tree_from_jax(tree_of_numpy, device="cuda") -> Dict[str, Any]:
+    """Any nested dict of arrays (``jax.tree.map(np.asarray, tree)``) as the
+    same dict of tensors on ``device``: dtypes kept, each leaf a private
+    copy.  The edge MLP's params and momentum cross over this way."""
+    dev = resolve_device(device)
+
+    def conv(tree, path):
+        if isinstance(tree, dict):
+            return {k: conv(v, f"{path}.{k}" if path else k)
+                    for k, v in tree.items()}
+        if np.ndim(tree) == 0 and not isinstance(tree, np.ndarray):
+            raise ValueError(f"{path or 'tree'}: expected an array, got "
+                             f"{type(tree).__name__}")
+        return _to_tensor(tree, dev)
+
+    if not isinstance(tree_of_numpy, dict):
+        raise ValueError("expected a dict of arrays")
+    return conv(tree_of_numpy, "")
+
+
 def cache_from_jax(cache_of_numpy, device="cuda") -> Dict[str, Any]:
     """Port a decode cache from the reference's, as numpy arrays.
 

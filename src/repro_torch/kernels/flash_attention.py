@@ -16,6 +16,11 @@ f32) fed by a TMA ring; the source's header says what bounds it and how.
   ``max(l, 1e-30)`` floor of the kernel.  It shares no tiling with the
   kernel, so it is an independent yardstick.
 
+Both refuse (``ValueError``) a ``swa`` call whose last query's window holds
+no key, ``q_offset + sq - window >= sk``: the kernel would visit no key
+tile and return 0 for such a row, the plain version the uniform average of
+all keys, and the reference's ``chunked_attention`` raises there too.
+
 Layouts match the reference's public ones: q (b, sq, h, hd), k/v
 (b, sk, kv, hd) -> (b, sq, h, hd) in q's dtype.  GQA reads K/V by kv-head
 index; nothing is repeated.
@@ -35,12 +40,25 @@ KINDS = {"causal": 0, "swa": 1, "bidir": 2}
 launches = 0  # kernel launches made by flash_attention (not by the plain version)
 
 
+def check_window(kind: str, window: int, q_offset: int, sq: int,
+                 sk: int) -> None:
+    """Raise for a ``swa`` call whose last query (position ``q_offset + sq
+    - 1``) sees no key: its window ``(pos - window, pos]`` starts at or
+    past ``sk``.  The last row is the first to go empty, so this covers
+    every row."""
+    if kind == "swa" and window > 0 and q_offset + sq - window >= sk:
+        raise ValueError(
+            f"swa window {window} at q_offset {q_offset} leaves query "
+            f"{q_offset + sq - 1} no key among {sk}")
+
+
 def flash_attention_ref(q, k, v, *, kind: str = "causal", window: int = 0,
                         q_offset: int = 0):
     """Plain PyTorch version of the kernel (any device)."""
     if kind not in KINDS:
         raise ValueError(f"unknown mask kind {kind!r}")
     b, sq, h, hd = q.shape
+    check_window(kind, window, q_offset, sq, k.shape[1])
     _, sk, kvh, _ = k.shape
     g = h // kvh
     qg = q.reshape(b, sq, kvh, g, hd).float()
@@ -95,6 +113,7 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
     """
     global launches
     refuse_grad("flash_attention", q, k, v)
+    check_window(kind, window, q_offset, q.shape[1], k.shape[1])
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, kind=kind, window=window,
                                    q_offset=q_offset)

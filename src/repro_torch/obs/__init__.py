@@ -1,6 +1,13 @@
-"""Observability of the port: run trackers and serving event hooks."""
-from repro_torch.obs.callbacks import (SERVE_EVENT,  # noqa: F401
-                                       SERVE_SUMMARY, serve_event)
+"""Observability of the port: run trackers, per-round trainer and fleet
+records, MFU, and serving event hooks."""
+from repro_torch.obs.callbacks import (FLEET_ROUND, SERVE_EVENT,  # noqa: F401
+                                       SERVE_SUMMARY, TRAIN_ROUND,
+                                       TRAIN_SUMMARY, RoundObserver,
+                                       fleet_round_record,
+                                       ring_wire_bytes_per_device,
+                                       serve_event)
+from repro_torch.obs.mfu import (DEVICE_PEAK_FLOPS,  # noqa: F401
+                                 counted_flops, mfu)
 from repro_torch.obs.tracker import (NOOP, SCHEMA_VERSION,  # noqa: F401
                                      CompositeTracker, JsonTracker,
                                      MemoryTracker, NoopTracker, Tracker,

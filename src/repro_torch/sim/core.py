@@ -1,9 +1,9 @@
-"""Discrete-event core of the serving runtime (and, later, the fleet engine).
+"""Discrete-event core shared by the fleet engine and the serving runtime.
 
-Carried over from ``repro/sim/core.py`` unchanged.  In the reference two
-consumers share it: the fleet engine schedules per-device training events
-and ``serve`` schedules per-request serving events (arrival / deadline),
-letting a batching scheduler interleave prefill and decode steps.
+Carried over from ``repro/sim/core.py`` unchanged.  Two consumers share
+it: the fleet engine (``fleet/engine.py``) schedules per-device training
+events, and ``serve`` schedules per-request serving events (arrival /
+deadline), letting a batching scheduler interleave prefill and decode steps.
 
 Both need the same two guarantees, which live here and nowhere else:
 
@@ -16,8 +16,9 @@ Both need the same two guarantees, which live here and nowhere else:
   commit an event before the current time is a scheduling bug, not a
   rounding artifact, and raises immediately.
 
-Event kinds are plain strings owned by the consumer (serving's live in
-``serve/engine.py``); the core is kind-agnostic.  ``Event.actor`` identifies whose event it is — a device
+Event kinds are plain strings owned by the consumer (the fleet's live in
+``fleet/events.py``, serving's in ``serve/engine.py``); the core is
+kind-agnostic.  ``Event.actor`` identifies whose event it is — a device
 index for the fleet, a request id for serving.  ``Event.device`` remains as
 an alias so fleet-era call sites keep reading naturally.
 """

@@ -6,7 +6,9 @@ flattens the same way.  Everything here walks sorted keys, recursively.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, List
+from typing import Any, Callable, Dict, Iterable, List, Tuple
+
+import torch
 
 
 def leaves(tree) -> List[Any]:
@@ -33,3 +35,22 @@ def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the leaves of same-shaped trees."""
     return unflatten(tree, [fn(*xs) for xs in
                             zip(leaves(tree), *(leaves(r) for r in rest))])
+
+
+def ravel(tree) -> Tuple[torch.Tensor, Callable]:
+    """``jax.flatten_util.ravel_pytree`` for a tree of tensors: the leaves,
+    flattened and concatenated in :func:`leaves` order, and ``unravel``,
+    which maps a flat vector back to a tree of views of it.  ``unravel``
+    also takes a stack of flat vectors, (D, n), and returns a tree whose
+    leaves carry that leading axis."""
+    flat_leaves = leaves(tree)
+    shapes = [tuple(l.shape) for l in flat_leaves]
+    sizes = [l.numel() for l in flat_leaves]
+    flat = torch.cat([l.reshape(-1) for l in flat_leaves])
+
+    def unravel(v):
+        lead = tuple(v.shape[:-1])
+        return unflatten(tree, [part.reshape(lead + sh) for part, sh in
+                                zip(torch.split(v, sizes, dim=-1), shapes)])
+
+    return flat, unravel

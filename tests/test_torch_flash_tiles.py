@@ -289,6 +289,51 @@ def test_fully_masked_row_keeps_the_finite_floor():
     assert torch.isfinite(out).all()
 
 
+def test_wrapper_refuses_a_window_that_holds_no_key():
+    """The smallest input of the fault: the kernel would return 0 and the
+    plain version 31.5 (the mean of the key indices); the wrapper and the
+    plain version refuse it, as the reference's chunked_attention does."""
+    q = torch.zeros(1, 1, 1, 32)
+    k = torch.zeros(1, 64, 1, 32)
+    v = torch.arange(64.0)[None, :, None, None].expand(1, 64, 1, 32)
+    for fn in (fa.flash_attention, fa.flash_attention_ref):
+        with pytest.raises(ValueError, match="no key"):
+            fn(q, k, v.contiguous(), kind="swa", window=4, q_offset=200)
+    with pytest.raises(ValueError, match="no key"):
+        fa.flash_attention(q, k, v.contiguous(), kind="swa", window=4,
+                           q_offset=67)          # on the bound: 67 + 1 - 4
+    # the same call with a window that reaches back to the keys is served
+    out = fa.flash_attention(q, k, v.contiguous(), kind="swa", window=201,
+                             q_offset=200)
+    assert float(out[0, 0, 0, 0]) == pytest.approx(31.5)
+
+
+@pytest.mark.parametrize("sq,window,q_offset", [
+    (1, 4, 66),        # one query, its window holds key 63 only
+    (16, 8, 55),       # the last query sees key 63 only; earlier ones more
+    (64, 32, 31),      # a chunk: 31 + 64 - 32 = 63 = sk - 1
+    (1, 64, 126),
+])
+def test_windows_just_inside_the_bound_match_jax(sq, window, q_offset):
+    """q_offset + sq - window = sk - 1: the last query's window holds one
+    key; the plain version, the wrapper on the CPU and the kernel model all
+    keep parity with the reference's chunked_attention there."""
+    sk, h, kvh, hd = 64, 2, 1, 64
+    assert q_offset + sq - window == sk - 1
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(1, sq, sk, h, kvh, hd, 5,
+                                           "float32")
+    ref = np.asarray(jax_chunked(qj, kj, vj, kind="swa", window=window,
+                                 q_offset=q_offset), np.float32)
+    for out in (fa.flash_attention(qt, kt, vt, kind="swa", window=window,
+                                   q_offset=q_offset),
+                fa.flash_attention_ref(qt, kt, vt, kind="swa",
+                                       window=window, q_offset=q_offset),
+                kernel_model(qt, kt, vt, kind="swa", window=window,
+                             q_offset=q_offset, dtype=qt.dtype)):
+        np.testing.assert_allclose(out.float().numpy(), ref, rtol=2e-5,
+                                   atol=2e-5)
+
+
 # ---------------------------------------------------------------------------
 # the key permutation leaves P V unchanged and matches the fragments
 

@@ -1,9 +1,11 @@
 """The port stands alone: no JAX, nothing of ``repro``; CUDA by default.
 
 * An AST scan of every module of ``src/repro_torch`` (serving, ``optim``,
-  ``core``, ``train``, ``data``, and the serving runtime: ``serve``,
-  ``sim``, ``obs``, ``core/streams.py``, ``models/paging.py``) and of
-  ``chip_smoke.py`` finds no import of ``jax`` or of the ``repro`` package.
+  ``core``, ``train``, ``data``, the serving runtime: ``serve``, ``sim``,
+  ``obs``, ``core/streams.py``, ``models/paging.py``, and the trainer
+  slice: ``core/scadles.py`` and its modules, ``fleet``, ``models/mlp.py``)
+  and of ``chip_smoke.py`` finds no import of ``jax`` or of the ``repro``
+  package.
 * Every entry point runs on ``cuda`` unless asked for the CPU, and raises
   where there is no card (these tests skip on a machine that has one);
   every kernel wrapper runs its plain version for CPU tensors only.
@@ -54,6 +56,16 @@ def test_scan_covers_the_serving_runtime():
         assert any(name.startswith(sub + "/") for name in scanned), sub
     assert {"core/streams.py", "models/paging.py", "serve/engine.py",
             "serve/scheduler.py", "obs/tracker.py"} <= scanned
+
+
+def test_scan_covers_the_trainer_slice():
+    scanned = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in PORT_FILES[:-1]}
+    assert {"core/buffer.py", "core/simclock.py", "core/injection.py",
+            "core/weighted_agg.py", "core/scadles.py", "models/mlp.py",
+            "obs/mfu.py", "obs/callbacks.py", "fleet/__init__.py",
+            "fleet/devices.py", "fleet/events.py", "fleet/policies.py",
+            "fleet/engine.py", "fleet/control.py"} <= scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -184,6 +196,29 @@ def test_serving_runtime_entry_points_default_to_cuda(no_card):
     assert args.streaming and args.device == "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--reduced", "--streaming", "--horizon", "0.5"])
+
+
+def test_trainer_defaults_to_cuda(no_card):
+    """``ScaDLESTrainer`` with a config that names no device runs on the
+    card, and raises here before it builds anything; so does the edge
+    MLP's ``init``."""
+    from repro_torch.core import ScaDLESConfig, ScaDLESTrainer
+    from repro_torch.data import ClassClusterData, DeviceDataSource
+    from repro_torch.fleet import FleetConfig
+    from repro_torch.models.mlp import make_mlp
+    data = ClassClusterData(num_classes=10, train_per_class=4,
+                            test_per_class=1, seed=0)
+    src = DeviceDataSource(data, 2, iid=True)
+    assert ScaDLESConfig().device == "cuda"
+    for fleet in (None, FleetConfig(profile="jetson-mixed", policy="async")):
+        with pytest.raises(RuntimeError, match="cuda"):
+            ScaDLESTrainer(make_mlp(), src,
+                           ScaDLESConfig(n_devices=2, fleet=fleet))
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_mlp()["init"](torch.Generator().manual_seed(0))
+    tr = ScaDLESTrainer(make_mlp(), src, ScaDLESConfig(n_devices=2, b_max=8,
+                                                       device="cpu"))
+    assert tr.params["w1"].device.type == "cpu"
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch):
