@@ -13,6 +13,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.cnn import init_cnn
 from repro_torch.models.transformer import init_params
 
 
@@ -24,22 +25,31 @@ def _to_tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)  # a private copy
 
 
-def _convert(tree, expected, device, path: str) -> Dict[str, Any]:
+def _convert(tree, expected, device, path: str):
+    where = path or "params"
+    if isinstance(expected, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(expected):
+            raise ValueError(f"{where}: expected a list of {len(expected)}, "
+                             f"got {type(tree).__name__}"
+                             + (f" of {len(tree)}"
+                                if isinstance(tree, (list, tuple)) else ""))
+        return [_convert(t, w, device, f"{path}[{i}]")
+                for i, (t, w) in enumerate(zip(tree, expected))]
     if not isinstance(tree, dict):
-        raise ValueError(f"{path or 'params'}: expected a dict, got "
+        raise ValueError(f"{where}: expected a dict, got "
                          f"{type(tree).__name__}")
     if set(tree) != set(expected):
-        raise ValueError(f"{path or 'params'}: keys {sorted(tree)} != "
+        raise ValueError(f"{where}: keys {sorted(tree)} != "
                          f"expected {sorted(expected)}")
     out = {}
     for key, want in expected.items():
-        where = f"{path}.{key}" if path else key
-        if isinstance(want, dict):
-            out[key] = _convert(tree[key], want, device, where)
+        at = f"{path}.{key}" if path else key
+        if isinstance(want, (dict, list)):
+            out[key] = _convert(tree[key], want, device, at)
             continue
         shape = tuple(np.shape(tree[key]))
         if shape != tuple(want.shape):
-            raise ValueError(f"{where}: shape {shape} != expected "
+            raise ValueError(f"{at}: shape {shape} != expected "
                              f"{tuple(want.shape)}")
         out[key] = _to_tensor(tree[key], device)
     return out
@@ -58,6 +68,18 @@ def params_from_jax(tree_of_numpy, cfg: ModelConfig,
     """
     dev = resolve_device(device)
     expected = init_params(None, cfg, device="meta")
+    return _convert(tree_of_numpy, expected, dev, "")
+
+
+def cnn_params_from_jax(tree_of_numpy, cfg: ModelConfig,
+                        device="cuda") -> Dict[str, Any]:
+    """Port CNN params from the reference's, as numpy arrays:
+    ``jax.tree.map(np.asarray, init_cnn(key, cfg))`` for the same config,
+    ``conv`` a list of ``{w (3, 3, Cin, Cout), b}``, then ``fc1`` and
+    ``fc2``.  Checked leaf by leaf against ``init_cnn(None, cfg,
+    device="meta")``; dtypes are kept."""
+    dev = resolve_device(device)
+    expected = init_cnn(None, cfg, device="meta")
     return _convert(tree_of_numpy, expected, dev, "")
 
 

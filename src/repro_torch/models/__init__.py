@@ -11,3 +11,6 @@ from repro_torch.models.decode import (  # noqa: F401
 from repro_torch.models.paging import (  # noqa: F401
     PagePool, PrefixIndex, PrefixMatch, page_keys,
 )
+from repro_torch.models.cnn import (  # noqa: F401
+    cnn_forward, cnn_loss, init_cnn,
+)

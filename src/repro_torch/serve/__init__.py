@@ -1,8 +1,11 @@
 """Continuous-batching streaming inference of the port on the event core.
 
-Exports as the reference's ``repro.serve``, less its ``control`` module
-(the ``ServeController`` waits for the port of ``fleet/control.py``).
+Exports as the reference's ``repro.serve``, the ``ServeController`` of
+``control`` included.
 """
+from repro_torch.serve.control import (  # noqa: F401
+    DEFAULT_CHUNK_GRID, ServeAction, ServeController,
+)
 from repro_torch.serve.engine import (  # noqa: F401
     DEADLINE, REQUEST_ARRIVAL, ContinuousBatchingServer, PrefixSimRunner,
     SlotRunner, StaticBatchingServer, StepCostModel, measured_cost_model,

@@ -27,8 +27,7 @@ along three axes:
 * **Online knobs** — ``chunk_tokens`` / ``priority`` / ``active_runners``
   are mutable mid-run; a controller hook fires every ``control_every_s``
   sim seconds with the rolling deadline-met goodput window
-  (the reference's ``serve/control.ServeController`` closes the loop; the
-  port has no controller yet).
+  (:class:`~repro_torch.serve.control.ServeController` closes the loop).
 
 Every admitted request reaches exactly one terminal state — finish, evict
 (deadline fired mid-flight or mid-prefill), or drop (expired in queue) —

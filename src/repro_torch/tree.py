@@ -1,29 +1,36 @@
-"""Nested dicts of tensors as pytrees, in ``jax.tree``'s leaf order.
+"""Nested dicts (and lists) of tensors as pytrees, in ``jax.tree``'s leaf
+order.
 
-``jax.tree.flatten`` walks a dict by sorted key, so index i of a flat
-gradient names the same parameter in both packages only if the port
-flattens the same way.  Everything here walks sorted keys, recursively.
+``jax.tree.flatten`` walks a dict by sorted key and a list in order, so
+index i of a flat gradient names the same parameter in both packages only
+if the port flattens the same way.  Everything here walks sorted keys and
+list positions, recursively.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, List, Tuple
+from typing import Any, Callable, Iterable, List, Tuple
 
 import torch
 
 
 def leaves(tree) -> List[Any]:
-    """The leaves of ``tree`` in sorted-key order (empty dicts have none)."""
+    """The leaves of ``tree`` in sorted-key order, lists in order (empty
+    dicts and lists have none)."""
+    if isinstance(tree, list):
+        return [x for sub in tree for x in leaves(sub)]
     if not isinstance(tree, dict):
         return [tree]
     return [x for key in sorted(tree) for x in leaves(tree[key])]
 
 
-def unflatten(tree, values: Iterable[Any]) -> Dict[str, Any]:
+def unflatten(tree, values: Iterable[Any]):
     """A tree shaped like ``tree`` whose leaves are ``values``, in the
     order :func:`leaves` gives."""
     it = iter(values)
 
     def build(t):
+        if isinstance(t, list):
+            return [build(sub) for sub in t]
         if not isinstance(t, dict):
             return next(it)
         return {key: build(t[key]) for key in sorted(t)}

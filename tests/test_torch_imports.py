@@ -3,9 +3,10 @@
 * An AST scan of every module of ``src/repro_torch`` (serving, ``optim``,
   ``core``, ``train``, ``data``, the serving runtime: ``serve``, ``sim``,
   ``obs``, ``core/streams.py``, ``models/paging.py``, and the trainer
-  slice: ``core/scadles.py`` and its modules, ``fleet``, ``models/mlp.py``)
-  and of ``chip_smoke.py`` finds no import of ``jax`` or of the ``repro``
-  package.
+  slice: ``core/scadles.py`` and its modules, ``fleet``, ``models/mlp.py``;
+  the streamdata slice: ``streamdata``, ``models/cnn.py``,
+  ``serve/control.py``) and of ``chip_smoke.py`` finds no import of ``jax``
+  or of the ``repro`` package.
 * Every entry point runs on ``cuda`` unless asked for the CPU, and raises
   where there is no card (these tests skip on a machine that has one);
   every kernel wrapper runs its plain version for CPU tensors only.
@@ -221,6 +222,36 @@ def test_trainer_defaults_to_cuda(no_card):
     assert tr.params["w1"].device.type == "cpu"
 
 
+
+def test_scan_covers_the_streamdata_slice():
+    scanned = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in PORT_FILES[:-1]}
+    assert {"streamdata/__init__.py", "streamdata/partition.py",
+            "streamdata/generators.py", "streamdata/loader.py",
+            "models/cnn.py", "serve/control.py"} <= scanned
+
+
+def test_cnn_defaults_to_cuda(no_card):
+    """``init_cnn`` and ``cnn_params_from_jax`` with no device run on the
+    card, and raise here; ``device="meta"`` sizes the model without a
+    card and ``device="cpu"`` must be asked for."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import cnn_params_from_jax
+    from repro_torch.models import init_cnn
+    cfg = get_config("paper-cnn")
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_cnn(None, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_cnn(torch.Generator().manual_seed(0), cfg)
+    meta = init_cnn(None, cfg, device="meta")
+    assert meta["fc2"]["w"].device.type == "meta"
+    tree = init_cnn(torch.Generator().manual_seed(0), cfg, device="cpu")
+    as_numpy = _tree_map(lambda t: t.numpy(), tree)
+    assert cnn_params_from_jax(as_numpy, cfg, device="cpu")["conv"][3][
+        "w"].shape == (3, 3, 256, 256)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cnn_params_from_jax(as_numpy, cfg)
+
 def test_kernel_build_raises_without_nvcc(monkeypatch):
     """A kernel that cannot be built raises; nothing falls back."""
     from repro_torch.kernels import _build
@@ -237,8 +268,11 @@ def _leaves(tree):
 
 
 def _tree_map(fn, tree):
-    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
 
 
 # ---------------------------------------------------------------------------
