@@ -29,6 +29,17 @@ package.  Phases, each fatal on failure (exit code 1, no result line):
    read just after; check they show 24 prefill and 24 x 32 decode launches,
    and hold the logits after prefill and after the last step against the
    same run on the plain versions (``backend="torch"``), teacher-forced;
+   6b. serve recurrentgemma-2b at full width and depth (26 layers, 8 of
+   them local attention at hd 256, g 10) and mixtral-8x22b at full width
+   and 2 of its 56 layers (SWA at hd 128, g 6; 8 experts top-2 at C 320)
+   offline through ``run_offline`` (random f32 weights from seed 0, batch
+   8, prompt 128, 16 greedy tokens), counted: one ``flash_attention`` per
+   attention layer and one ``flash_decode`` per attention layer a step;
+   the same prompts greedily on the plain path give the same tokens, and
+   logits after prefill and after the last step within LOGIT_TOL;
+   6c. recurrentgemma-2b at batch 1 with a 2 112-token prompt, past its
+   2 048-token window, so the ring wraps at prefill and through 16 steps,
+   held the same way;
 7. drive the continuous-batching path (``init_slot_cache`` /
    ``slot_insert`` / ``slot_evict``) with requests of different prompt
    lengths, so per-slot kv_len reaches ``flash_decode``, counted the same
@@ -54,6 +65,13 @@ package.  Phases, each fatal on failure (exit code 1, no result line):
    short Table I trace, counted the same way: launches equal to fused
    prefills x 24 and decode steps x 24, every request in one terminal
    state, completed requests with all their tokens;
+   7e. recurrentgemma-2b at full width on a paged cache (pages of 16)
+   through ``SlotRunner`` with ``ChunkedPrefill`` (chunk 64) behind the
+   Scheduler, phase 7c's trace over 4 slots (slots released and taken
+   again): only ``flash_decode_paged`` at decode, launches equal to
+   chunks x 8 and steps x 8, tokens identical to a fixed-slot runner on the
+   same schedule; RG-LRU state through ``slot_insert``/``slot_evict`` of a
+   paged cache bit for bit;
 8. train qwen2-0.5b at full width and depth (random f32 weights from seed
    0, batch 8 x 256 tokens from ``TokenData``, remat, loss chunk 128) with
    ``make_ddp_steps`` (cr 0.1, momentum-SGD 0.9, lr 1e-3, one rank): a
@@ -115,8 +133,13 @@ package.  Phases, each fatal on failure (exit code 1, no result line):
    by kernel; time the dense and compressed training steps with CUDA-event
    splits (forward+backward, top-k, aggregation, update); time a decode
    step of a paged and of a fixed-slot cache at one occupancy, in turns,
-   and ``measured_cost_model``;
-10. print one JSON line of kernels, then the result line.
+   and ``measured_cost_model``; the attention kernels at
+   recurrentgemma-2b's shapes (prefill at b 8 x 128 and b 1 x 2 112, swa
+   window 2 048; decode over a full 2 048-token ring at b 8 and b 1), and
+   a prefill and decode steps of each phase-6b model, with one MoE FFN at
+   the decode shape;
+10. print one JSON line of kernels (each with its launches by path), then
+   the result line.
 
 Phase 2 also fails if any instance of the decode kernel
 (``flash_decode_kernel``) or of the prefill kernel (``flash_fwd_wgmma``,
@@ -236,6 +259,21 @@ STREAMDATA = {"n_devices": 16, "rounds": 30, "timed_rounds": 12,
 # phase 8d: the paper CNN, card (f32 convolutions) against the CPU
 CNN = {"batch": 128, "seed": 0, "iters": 5,
        "logit_rel": 1e-4, "loss_rel": 1e-5, "grad_rel": 1e-4}
+# phases 6b, 6c, 7e: the MoE and hybrid families at full width, random f32
+# weights from seed 0.  "layers" cuts depth (None: full depth); mixtral's
+# 56 layers come to about 524 GiB in f32, more than one card holds, so it
+# keeps 2.  Kernel path against plain path at LOGIT_TOL: the logits of
+# these random models are O(1)-O(10) (tied or 1/sqrt(d) heads over rms-
+# normed states), so f32 attention-order noise of ~1e-6 relative stays far
+# inside 1e-3 absolute.
+ZOO = {"recurrentgemma-2b": {"layers": None}, "mixtral-8x22b": {"layers": 2}}
+ZOO_OFFLINE = {"batch": 8, "prompt": 128, "gen": 16}
+# phase 6c: a prompt past recurrentgemma's 2 048-token local window
+ZOO_RING = {"batch": 1, "prompt": 2112, "gen": 16}
+# phase 7e: recurrentgemma paged behind the Scheduler, phase 7c's trace
+# (no templates: this family shares no prefix) over 4 slots
+ZOO_PAGED = {"max_batch": 4, "cache_len": 192, "page_size": 16,
+             "num_pages": 48}
 TRAIN = {"arch": "qwen2-0.5b", "batch": 8, "seq": 256, "loss_chunk": 128,
          "cr": 0.1, "momentum": 0.9, "lr": 1e-3, "seed": 0}
 KERNEL_SOURCES = ["flash_attention", "flash_decode", "block_topk",
@@ -362,6 +400,16 @@ def check_kernels(torch, fa, fd):
          "float32"),
         ("hd128 g6 ragged", 1, 200, 200, 48, 8, 128, "causal", 0, 0,
          "bfloat16"),
+        # the shapes of phases 6b, 6c and 7e: recurrentgemma-2b's local
+        # attention (the FMA body) and mixtral-8x22b's SWA
+        ("recurrentgemma prefill", 8, 128, 128, 10, 1, 256, "swa", 2048, 0,
+         "float32"),
+        ("recurrentgemma past the window", 1, 2112, 2112, 10, 1, 256, "swa",
+         2048, 0, "float32"),
+        ("recurrentgemma chunk", 1, 64, 192, 10, 1, 256, "swa", 2048, 128,
+         "float32"),
+        ("mixtral prefill", 8, 128, 128, 48, 8, 128, "swa", 4096, 0,
+         "float32"),
     ]
     errs = {"flash_attention": [], "flash_decode": []}
     log("# phase 4: kernels vs plain versions")
@@ -403,6 +451,13 @@ def check_kernels(torch, fa, fd):
         ("g 16, hd 64", 4, 700, 32, 2, 64, [700, 1, 333, 0], "float32"),
         ("g 16, hd 256", 2, 300, 16, 1, 256, [300, 97], "float32"),
         ("g 16, hd 256", 2, 300, 16, 1, 256, [300, 97], "bfloat16"),
+        # phases 6b and 6c: recurrentgemma-2b, mixtral-8x22b
+        ("recurrentgemma decode", 8, 144, 10, 1, 256,
+         [129, 130, 133, 137, 140, 141, 143, 144], "float32"),
+        ("recurrentgemma full ring", 1, 2048, 10, 1, 256, [2048],
+         "float32"),
+        ("mixtral decode", 8, 144, 48, 8, 128,
+         [129, 130, 133, 137, 140, 141, 143, 144], "float32"),
     ]
     for (label, b, S, h, kv, hd, lens, dt) in dec_cases:
         q = rand(torch, (b, 1, h, hd), dts[dt], gen)
@@ -489,6 +544,9 @@ def check_paged(torch, fd, gen, dts):
          split_lens(fd, 10, 2, 16385), "float32", "scrambled"),
         ("g 16, hd 256", 2, 16, 20, 45, 16, 1, 256, [320, 97], "float32",
          "scrambled"),
+        # phase 7e: recurrentgemma-2b's 4 slots, pages of 16
+        ("recurrentgemma slots", 4, 16, 12, 52, 10, 1, 256,
+         [17, 64, 128, 160], "float32", "scrambled"),
     ]
     errs = []
     for (label, b, pg, ncols, rows, h, kv, hd, lens, dt, table) in cases:
@@ -834,14 +892,15 @@ def serve_paged(torch, mods, serve, dec, paging):
 
 
 def scheduled_run(rt, cfg, ctx, params, cost, reqs, runner_kw,
-                  controller=None):
+                  controller=None, max_batch=SCHED["max_batch"],
+                  cache_len=SCHED["cache_len"]):
     """One run of the trace through a ``SlotRunner`` behind the
     ``Scheduler`` (chunk 64, decode_first), counting the prefill chunks
     and decode steps the runner makes; returns (runner, records, summary,
     counts, wall s)."""
-    runner = rt.SlotRunner(params, cfg, ctx, SCHED["max_batch"],
-                           SCHED["cache_len"], **runner_kw)
-    sched = rt.Scheduler(SCHED["max_batch"], cost, runners=[runner],
+    runner = rt.SlotRunner(params, cfg, ctx, max_batch, cache_len,
+                           **runner_kw)
+    sched = rt.Scheduler(max_batch, cost, runners=[runner],
                          chunk_tokens=SCHED["chunk"], priority="decode_first")
     n = {"chunks": 0, "steps": 0}
     chunk, step = sched._prefill_chunk, runner.step
@@ -1069,6 +1128,233 @@ def serve_streaming(torch, mods, serve, rt):
         f"slo_attainment {summary['slo_attainment']:.4f}, ttft_p50 "
         f"{summary['ttft_p50_s']:.4f} s (sim clock)")
     return launched
+
+
+# ---------------------------------------------------------------------------
+# phases 6b, 6c, 7e: the MoE and hybrid families
+
+
+def zoo_cfg(get_config, arch):
+    """The config phases 6b/6c/7e serve: the registry's, at full width, with
+    depth cut where ZOO says (mixtral's 56 layers are ~524 GiB in f32)."""
+    cfg = get_config(arch)
+    layers = ZOO[arch]["layers"]
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers,
+                                  layer_pattern=cfg.pattern[:layers])
+    return cfg
+
+
+def n_attention(cfg) -> int:
+    """Attention layers of ``cfg``: one kernel launch each per prefill
+    chunk and per decode step."""
+    from repro_torch.models.transformer import ATTN_KINDS
+    return sum(kind in ATTN_KINDS for kind in cfg.pattern)
+
+
+def zoo_argv(arch, batch, prompt, gen):
+    return ["--arch", arch, "--batch", str(batch), "--prompt-len",
+            str(prompt), "--gen", str(gen), "--temperature", "0", "--seed",
+            "0", "--device", DEVICE]
+
+
+def plain_greedy(torch, dec, cfg, ctx, params, prompts, gen):
+    """The offline run on the plain versions, greedy: (tokens (b, gen),
+    prefill logits, last logits, cache)."""
+    tctx = dataclasses.replace(ctx, prefill_backend="torch",
+                               decode_backend="torch")
+    cache = dec.init_cache(cfg, prompts.shape[0], prompts.shape[1] + gen,
+                           tctx)
+    logits, cache = dec.prefill_cache(params, prompts, cache, cfg, tctx)
+    first, out = logits, []
+    for _ in range(gen):
+        nxt = torch.argmax(logits, dim=-1)
+        out.append(nxt)
+        logits, cache = dec.decode_step(params, cache, nxt[:, None], cfg,
+                                        tctx)
+    return torch.stack(out, dim=1), first, logits, cache
+
+
+def zoo_offline(torch, mods, serve, dec, get_config, arch, batch, prompt,
+                gen, label):
+    """One offline run of ``arch`` through ``run_offline`` on the kernel
+    path, counted, then the same prompts greedily on the plain path: equal
+    tokens, logits after prefill and after the last step within
+    LOGIT_TOL.  Returns (launches, the plain run's cache, cfg)."""
+    cfg = zoo_cfg(get_config, arch)
+    args = serve.parse_args(zoo_argv(arch, batch, prompt, gen))
+    n_attn = n_attention(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset(mods)
+    t0 = time.perf_counter()
+    res = serve.run_offline(args, cfg=cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts(mods)
+    log(f"  {label}: {cfg.num_layers} layers ({n_attn} attention), "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab_size}; batch {batch}, "
+        f"prompt {prompt}, {gen} greedy tokens; run_offline {wall:.2f} s "
+        f"wall (prefill {res['prefill_s']:.3f} s, decode "
+        f"{res['decode_s']:.3f} s), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated; "
+        f"launches {launched}")
+    want = expect(flash_attention=n_attn, flash_decode=n_attn * gen)
+    if launched != want:
+        fail(f"{label}: launched {launched}, expected {want}")
+    for key in ("prefill_logits", "last_logits"):
+        if not torch.isfinite(res[key]).all():
+            fail(f"{label}: {key} not finite")
+    if res["tokens"].shape != (batch, gen):
+        fail(f"{label}: tokens shape {tuple(res['tokens'].shape)}")
+    cfg, ctx, params, prompts, _ = serve.setup(args, cfg)
+    if not torch.equal(prompts, res["prompts"]):
+        fail(f"{label}: prompts differ between two setups from one seed")
+    toks, first, last, cache = plain_greedy(torch, dec, cfg, ctx, params,
+                                            prompts, gen)
+    same = torch.equal(toks, res["tokens"])
+    err_prefill = max_err(res["prefill_logits"], first)
+    err_last = max_err(res["last_logits"], last)
+    log(f"  {label} vs the plain path: greedy tokens equal {same}; logits "
+        f"after prefill max_abs_err={err_prefill:.3e}, after step {gen} "
+        f"max_abs_err={err_last:.3e} (|logits| max "
+        f"{float(last.abs().max()):.3f}), bound {LOGIT_TOL:g}")
+    if not same:
+        fail(f"{label}: greedy tokens differ from the plain path")
+    if not (err_prefill <= LOGIT_TOL and err_last <= LOGIT_TOL):
+        fail(f"{label}: logits disagree with the plain path")
+    del params, res
+    return launched, cache, cfg
+
+
+def serve_zoo(torch, mods, serve, dec, get_config):
+    """Phases 6b and 6c: recurrentgemma-2b at full width and depth and
+    mixtral-8x22b at full width and depth 2, offline; then recurrentgemma
+    with a prompt longer than its 2 048-token local window, so the ring
+    wraps at prefill and through decode."""
+    log("# phase 6b: offline serving of the MoE and hybrid families at full "
+        "width")
+    launched = {}
+    for arch in ZOO:
+        launched[arch], cache, _ = zoo_offline(
+            torch, mods, serve, dec, get_config, arch, **ZOO_OFFLINE,
+            label=arch)
+        del cache
+        torch.cuda.empty_cache()
+    log("# phase 6c: recurrentgemma-2b with the local-attention ring "
+        "wrapping at full width")
+    arch = "recurrentgemma-2b"
+    launched["recurrentgemma-2b ring"], cache, cfg = zoo_offline(
+        torch, mods, serve, dec, get_config, arch, **ZOO_RING,
+        label=f"{arch} ring")
+    rings = {cl["k"].shape[-3] for part in ("unit", "rest")
+             for cl in cache[part].values() if "k" in cl}
+    ring = min(cfg.window_size, ZOO_RING["prompt"] + ZOO_RING["gen"])
+    log(f"  ring length {ring} (window {cfg.window_size}) under a "
+        f"{ZOO_RING['prompt']}-token prompt and {ZOO_RING['gen']} steps; "
+        f"cache rings {sorted(rings)}; final pos {int(cache['pos'])}")
+    if rings != {ring} or not ZOO_RING["prompt"] > ring:
+        fail("phase 6c: the local-attention ring did not wrap")
+    del cache
+    torch.cuda.empty_cache()
+    return launched
+
+
+def rglru_slot_states(torch, dec, cfg, ctx, params, label):
+    """RG-LRU state through ``slot_insert``/``slot_evict`` on a paged cache
+    at full width: inserted bit for bit, other slots untouched, zeroed on
+    eviction."""
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    cache = dec.init_paged_cache(cfg, 3, ZOO_PAGED["cache_len"], ctx,
+                                 page_size=ZOO_PAGED["page_size"],
+                                 num_pages=3 * ZOO_PAGED["cache_len"]
+                                 // ZOO_PAGED["page_size"])
+    per = ZOO_PAGED["cache_len"] // ZOO_PAGED["page_size"]
+    srcs = []
+    for slot, plen in enumerate((17, 64, 33)):
+        one = dec.init_cache(cfg, 1, ZOO_PAGED["cache_len"], ctx)
+        one["pos"] = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
+        prompt = torch.randint(0, cfg.vocab_size, (1, plen), generator=gen,
+                               device=DEVICE)
+        _, src = dec.prefill_cache(params, prompt, one, cfg, ctx)
+        dec.slot_insert(cache, slot, src,
+                        pages=range(slot * per, (slot + 1) * per))
+        srcs.append(src)
+    states = [(part, name, leaf) for part in ("unit", "rest")
+              for name, cl in cache[part].items() if "h" in cl
+              for leaf in ("h", "conv")]
+
+    def slot_state(c, part, name, leaf, slot):
+        t = c[part][name][leaf]
+        return t[:, slot] if part == "unit" else t[slot]
+
+    n_layers = sum(cache[part][name]["h"].shape[0] if part == "unit" else 1
+                   for part, name, leaf in states if leaf == "h")
+    inserted = all(torch.equal(slot_state(cache, *st, slot),
+                               slot_state(src, *st, 0))
+                   for st in states for slot, src in enumerate(srcs))
+    dec.slot_evict(cache, 1)
+    zeroed = all(not bool(slot_state(cache, *st, 1).any()) for st in states)
+    kept = all(torch.equal(slot_state(cache, *st, slot),
+                           slot_state(srcs[slot], *st, 0))
+               for st in states for slot in (0, 2))
+    log(f"  {label}: RG-LRU state of {n_layers} layers inserted "
+        f"bit for bit {inserted}, zeroed on eviction {zeroed}, other slots "
+        f"untouched {kept}")
+    if not (inserted and zeroed and kept):
+        fail(f"{label}: RG-LRU state lost in slot_insert/slot_evict")
+
+
+def serve_zoo_paged(torch, mods, serve, rt, dec, get_config):
+    """Phase 7e: recurrentgemma-2b on a paged cache through ``SlotRunner``
+    with ``ChunkedPrefill`` behind the Scheduler (fewer slots than
+    requests, so slots are released and taken again), against a fixed-slot
+    runner on the same schedule: only ``flash_decode_paged`` at decode,
+    tokens identical."""
+    arch = "recurrentgemma-2b"
+    log(f"# phase 7e: paged serving of {arch} at full width behind the "
+        "Scheduler")
+    cfg = zoo_cfg(get_config, arch)
+    args = serve.parse_args(zoo_argv(arch, 1, 16, 1))
+    cfg, ctx, params, _, _ = serve.setup(args, cfg)
+    n_attn = n_attention(cfg)
+    rglru_slot_states(torch, dec, cfg, ctx, params, arch)
+    cost = rt.StepCostModel(**SCHED["cost"])
+    reqs = rt.RequestStream(**dict(SCHED["stream"], n_templates=0,
+                                   template_prefix_len=0)
+                            ).generate(SCHED["horizon"])
+    geom = {"max_batch": ZOO_PAGED["max_batch"],
+            "cache_len": ZOO_PAGED["cache_len"]}
+    runs = {}
+    for label, kw in (("paged", {"page_size": ZOO_PAGED["page_size"],
+                                 "num_pages": ZOO_PAGED["num_pages"]}),
+                      ("fixed-slot", {})):
+        reset(mods)
+        runner, recs, summary, n, wall = scheduled_run(
+            rt, cfg, ctx, params, cost, reqs, kw, **geom)
+        torch.cuda.synchronize()
+        launched = counts(mods)
+        done = hold_scheduled(f"phase 7e {label}", cfg, runner, recs,
+                              summary)
+        decode = "flash_decode_paged" if kw else "flash_decode"
+        want = expect(flash_attention=n["chunks"] * n_attn,
+                      **{decode: n["steps"] * n_attn})
+        log(f"  {label}: {len(recs)} requests over {geom['max_batch']} "
+            f"slots, {n['chunks']} prefill chunks, {n['steps']} decode "
+            f"steps, {wall:.2f} s wall; completed {len(done)}; launches "
+            f"{launched}")
+        if launched != want:
+            fail(f"phase 7e {label}: launched {launched}, expected {want}")
+        if len(done) <= geom["max_batch"]:
+            fail(f"phase 7e {label}: no slot was released and taken again")
+        runs[label] = (runner.generated, launched)
+    same = runs["paged"][0] == runs["fixed-slot"][0]
+    log(f"  paged tokens identical to fixed-slot tokens: {same} "
+        f"({sum(len(v) for v in runs['paged'][0].values())} tokens)")
+    if not same:
+        fail("phase 7e: paged tokens differ from fixed-slot tokens")
+    del params
+    torch.cuda.empty_cache()
+    return runs["paged"][1]
 
 
 # ---------------------------------------------------------------------------
@@ -1931,6 +2217,149 @@ def time_decode(torch, fd, gen):
     return times
 
 
+def swa_pairs(s: int, window: int) -> int:
+    """Unmasked (query, key) pairs of an s x s causal window-``window``
+    mask: query i sees min(i + 1, window) keys."""
+    full = min(s, window)
+    return full * (full + 1) // 2 + (s - full) * window
+
+
+def time_zoo_kernels(torch, fa, fd, cfg, gen):
+    """The attention kernels at recurrentgemma-2b's shapes (h 10, kv 1, hd
+    256, f32, local window 2 048): ``flash_attention`` at phase 6b's prefill
+    (b 8, s 128) and phase 6c's (b 1, s 2 112, past the window); both
+    decode entries over a full 2 048-token ring at b 8 and b 1 (paged:
+    pages of 16, scrambled rows).  Kernel, plain and library device times
+    beside the bound, as :func:`time_attention` and :func:`time_decode`
+    make them; the prefill bound counts the window's unmasked pairs."""
+    import torch.nn.functional as F
+    h, kv, hd, window = (cfg.num_heads, cfg.num_kv_heads,
+                         cfg.resolved_head_dim, cfg.window_size)
+    out = {"flash_attention": {}, "flash_decode": {},
+           "flash_decode_paged": {}}
+    for b, s, pre in ((8, 128, "rg_"), (1, ZOO_RING["prompt"], "rg_long_")):
+        q, k, v = (torch.randn((b, s, n, hd), generator=gen, device=DEVICE)
+                   for n in (h, kv, kv))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        i = torch.arange(s, device=DEVICE)
+        band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        t = time_fns(
+            torch, lambda: fa.flash_attention(q, k, v, kind="swa",
+                                              window=window),
+            lambda: fa.flash_attention_ref(q, k, v, kind="swa",
+                                           window=window),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=band,
+                                                   enable_gqa=True))
+        t.pop("call_ms")
+        n_ops = 4 * hd * b * h * swa_pairs(s, window)
+        n_bytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+        t["cuda_core_bound_ms"], _ = bound(n_bytes, n_ops, "float32")
+        t["bound_ms"], t["bound_by"] = bound(n_bytes, n_ops, "float32",
+                                             peak=TF32X3_OPS)
+        if t["bound_by"] == "operations":
+            t["bound_by"] += ", 3xTF32"
+        t["shape"] = (f"b {b}, sq = sk = {s}, h {h}, kv {kv}, hd {hd}, f32, "
+                      f"swa window {window}")
+        out["flash_attention"].update({pre + key: val
+                                       for key, val in t.items()})
+        del q, k, v, qt, kt, vt, band
+    S, pg = window, 16
+    for b, pre in ((8, "rg_"), (1, "rg_b1_")):
+        qd = torch.randn((b, 1, h, hd), generator=gen, device=DEVICE)
+        kc, vc = (torch.randn((b, S, kv, hd), generator=gen, device=DEVICE)
+                  for _ in range(2))
+        kvl = torch.full((b,), S, dtype=torch.int32, device=DEVICE)
+        qdt, kct, vct = (x.transpose(1, 2).contiguous()
+                         for x in (qd, kc, vc))
+        kv_bytes = 4 * 2 * b * S * kv * hd
+        n_ops = 4 * hd * b * h * S
+        t = time_fns(torch, lambda: fd.flash_decode(qd, kc, vc, kvl),
+                     lambda: fd.flash_decode_ref(qd, kc, vc, kvl),
+                     lambda: F.scaled_dot_product_attention(
+                         qdt, kct, vct, enable_gqa=True))
+        t.pop("call_ms")
+        t["bound_ms"], t["bound_by"] = bound(
+            4 * 2 * qd.numel() + kv_bytes + 4 * b, n_ops, "float32")
+        t["shape"] = (f"b {b}, h {h}, kv {kv}, hd {hd}, a full {S}-token "
+                      f"ring, f32")
+        out["flash_decode"].update({pre + key: val for key, val in t.items()})
+        ncols, rows = S // pg, b * S // pg
+        kp, vp = (torch.randn((rows, pg, kv, hd), generator=gen,
+                              device=DEVICE) for _ in range(2))
+        bt = block_table(torch, "scrambled", b, ncols, rows, gen)
+
+        def gather_sdpa():
+            view = [pool[bt.long()].reshape(b, S, kv, hd).transpose(1, 2)
+                    for pool in (kp, vp)]
+            return F.scaled_dot_product_attention(qdt, *view,
+                                                  enable_gqa=True)
+
+        t = time_fns(torch,
+                     lambda: fd.flash_decode_paged(qd, kp, vp, bt, kvl),
+                     lambda: fd.flash_decode_paged_ref(qd, kp, vp, bt, kvl),
+                     gather_sdpa)
+        t.pop("call_ms")
+        t["bound_ms"], t["bound_by"] = bound(
+            4 * 2 * qd.numel() + kv_bytes + 4 * b + 4 * bt.numel(), n_ops,
+            "float32")
+        t["shape"] = (f"b {b}, h {h}, kv {kv}, hd {hd}, a full {S}-token "
+                      f"ring in pages of {pg}, f32")
+        out["flash_decode_paged"].update({pre + key: val
+                                          for key, val in t.items()})
+        del qd, kc, vc, qdt, kct, vct, kp, vp, bt
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_zoo_serving(torch, serve, dec, get_config, card):
+    """Prefill (b 8, prompt 128) and decode steps (16, greedy) of each zoo
+    model, host clock around synchronised work, with the decode step's
+    device time and torch.profiler's breakdown; for mixtral also one MoE
+    FFN at the decode shape, whose capacity of 320 rows an expert (from
+    group_size 1024, whatever the call's length) sets its work."""
+    from repro_torch.models import moe
+    for arch in ZOO:
+        log(f"# phase 9: {arch} serving times on {card}")
+        cfg = zoo_cfg(get_config, arch)
+        args = serve.parse_args(zoo_argv(arch, **ZOO_OFFLINE))
+        cfg, ctx, params, prompts, _ = serve.setup(args, cfg)
+        cache_len = args.prompt_len + args.gen
+        prefill_ms = []
+        for _ in range(3):
+            cache = dec.init_cache(cfg, args.batch, cache_len, ctx)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = dec.prefill_cache(params, prompts, cache, cfg,
+                                              ctx)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        for _ in range(args.gen):
+            nxt = torch.argmax(logits, -1)[:, None]
+            logits, cache = dec.decode_step(params, cache, nxt, cfg, ctx)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / args.gen * 1e3
+        log(f"  prefill (b {args.batch}, prompt {args.prompt_len}): "
+            f"{sorted(prefill_ms[1:])[0]:.3f} ms (warm runs "
+            f"{', '.join(f'{t:.3f}' for t in prefill_ms[1:])}); decode "
+            f"{step_ms:.3f} ms/step over {args.gen} steps  [{card}]")
+        profile_decode(torch, dec, params, prompts, cfg, ctx, cache_len,
+                       card, step_ms, steps=2)
+        if cfg.moe is not None:
+            bp = {k: v[0] for k, v in params["unit"]["p0"]["moe"].items()}
+            x = torch.randn((args.batch, 1, cfg.d_model), device=DEVICE)
+            ms = device_ms(torch, lambda: moe.moe_ffn(bp, x, cfg), iters=3)
+            E, C = cfg.moe.num_experts, moe.capacity(cfg.moe)
+            flops = 3 * 2 * args.batch * E * C * cfg.d_model * cfg.d_ff
+            log(f"  one MoE FFN at the decode shape (b {args.batch}, s 1; E "
+                f"{E}, C {C}): {ms:.3f} ms device, {flops:.3e} expert "
+                f"flops ({flops / ms / 1e9:.1f} TFLOP/s) for "
+                f"{args.batch * cfg.moe.top_k} routed token-experts  [{card}]")
+        del params, cache, logits
+        torch.cuda.empty_cache()
+
+
 def time_paged_steps(torch, serve, dec, rt, card, steps=8):
     """A decode step of a fixed-slot and of a paged cache at one occupancy
     (8 slots, prompt 128, cache 160, pages of 16), host clock around
@@ -2236,10 +2665,14 @@ def main() -> None:
     errs = check_kernels(torch, fa, fd)
     errs.update(check_train_kernels(torch, bt, sa, n_train))
     launched, _ = serve_offline(torch, mods, serve, dec)
+    paths = {f"6 {name}": n for name, n in
+             serve_zoo(torch, mods, serve, dec, get_config).items()}
     serve_slots(torch, mods, serve, dec)
     serve_paged(torch, mods, serve, dec, paging)
     sched_launched = serve_scheduled(torch, mods, serve, rt)
     serve_streaming(torch, mods, serve, rt)
+    paths["7e recurrentgemma-2b paged"] = serve_zoo_paged(
+        torch, mods, serve, rt, dec, get_config)
     launched["flash_decode_paged"] = sched_launched["flash_decode_paged"]
     train_launched, train = train_path(torch, mods)
     scadles_path(torch, mods, card)
@@ -2254,8 +2687,14 @@ def main() -> None:
     del train
     torch.cuda.empty_cache()
     times.update(time_kernels(torch, fa, fd))
+    zoo_times = time_zoo_kernels(
+        torch, fa, fd, zoo_cfg(get_config, "recurrentgemma-2b"),
+        torch.Generator(device=DEVICE).manual_seed(98))
+    for name, t in zoo_times.items():
+        times[name].update(t)
     time_serving(torch, serve, dec, card)
     time_paged_steps(torch, serve, dec, rt, card)
+    time_zoo_serving(torch, serve, dec, get_config, card)
 
     sources = {
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -2294,6 +2733,16 @@ def main() -> None:
                 f"{share(t, 'long_')} (CUDA-core bound "
                 f"{100 * t['long_cuda_core_bound_ms'] / t['long_ms']:.1f}%)"
                 f"  [{card}]")
+        for pre in ("rg_", "rg_long_", "rg_b1_"):
+            if pre + "ms" in t:
+                cc = t.get(pre + "cuda_core_bound_ms")
+                core = (f" (CUDA-core bound {100 * cc / t[pre + 'ms']:.1f}%)"
+                        if cc else "")
+                log(f"  {name} at {t[pre + 'shape']}: device "
+                    f"{t[pre + 'ms']:.4f} ms, plain {t[pre + 'plain_ms']:.4f}"
+                    f" ms, library {t[pre + 'library_ms']:.4f} ms, bound "
+                    f"{t[pre + 'bound_ms']:.5f} ms ({t[pre + 'bound_by']}), "
+                    f"{share(t, pre)} of it{core}  [{card}]")
         for pre in ("bf16_", "long_bf16_"):
             if pre + "ms" in t:
                 log(f"  {name} bf16{' long' if 'long' in pre else ''}: "
@@ -2304,7 +2753,9 @@ def main() -> None:
                     f" {share(t, pre)} of it  [{card}]")
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launched[name],
-                        "max_abs_err": errs[name], **t})
+                        "max_abs_err": errs[name], **t,
+                        "path_launches": {path: n[name]
+                                          for path, n in paths.items()}})
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

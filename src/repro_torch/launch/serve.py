@@ -17,7 +17,9 @@ fixed-slot ``SlotRunner``):
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
         --device cpu --streaming
 
-Counterpart of ``repro/launch/serve.py``.  Weights are random, made from
+Counterpart of ``repro/launch/serve.py``.  ``--arch`` takes any config of
+the families the port serves (dense, moe, hybrid: qwen2-0.5b,
+mixtral-8x22b, recurrentgemma-2b, ...).  Weights are random, made from
 ``--seed``; prefill and decode attention run on the Hopper kernels
 (``repro_torch/kernels``).  Without CUDA it raises unless ``--device cpu``
 is given.  Paged serving has no flags here, as in the reference: it is
@@ -46,11 +48,15 @@ def generators(seed: int, device) -> List[torch.Generator]:
     return [torch.Generator(device=device).manual_seed(s) for s in seeds]
 
 
-def setup(args):
+def setup(args, cfg=None):
+    """(cfg, ctx, params, prompts, sampling generator) for ``args``.
+    ``cfg`` replaces the registry's config of ``args.arch`` (a caller that
+    serves a cut of a model, such as fewer layers, passes it here)."""
     dev = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     ctx = RunCtx(device=str(dev))
     g_init, g_prompt, g_sample = generators(args.seed, dev)
     params = init_params(g_init, cfg, device=dev)
@@ -64,13 +70,14 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run_offline(args) -> Dict[str, Any]:
+def run_offline(args, cfg=None) -> Dict[str, Any]:
     """Prefill a random batch of prompts, then decode ``args.gen`` tokens.
 
     Returns the prompts, the generated tokens (b, gen), the logits after
     prefill and after the last step, and the wall times of both phases.
+    ``cfg``: as in :func:`setup`.
     """
-    cfg, ctx, params, prompts, g_sample = setup(args)
+    cfg, ctx, params, prompts, g_sample = setup(args, cfg)
     dev = prompts.device
     pattern = cfg.pattern_for_long_context() if args.long_context else None
     cache_len = args.prompt_len + args.gen

@@ -1,14 +1,17 @@
 """Serving: KV caches (fixed-slot and paged), slot ops, fused and chunked
 prefill, decode step.
 
-Counterpart of ``repro/models/decode.py`` for attention stacks (cross-
-attention and the recurrent/xLSTM states come with later slices).
+Counterpart of ``repro/models/decode.py`` for attention and RG-LRU stacks
+with dense or MoE FFNs (cross-attention and the xLSTM states come with a
+later slice).
 
 Cache kinds per layer, sized from the *effective* pattern:
 
 * full attention — (b, S, kv, hd) K/V, slot = pos
 * SWA / local    — ring buffer (b, W, kv, hd), slot = pos % W; RoPE is
   applied at write time, so the ring's storage order is harmless
+* RG-LRU         — ``h`` (b, r) f32 and ``conv`` (b, 3, r) taps: O(1) in
+  the sequence length, and slot-resident in the paged layout too
 
 The cache is the reference's dict: ``unit`` (each leaf stacked over the
 unit's repeats), ``rest`` and ``pos`` — a scalar for an offline batch that
@@ -32,9 +35,9 @@ interleave with decode steps, and can start past a prompt prefix whose K/V
 it takes from shared pages (``gather_prefix_kv``).
 
 Unlike the reference, which is functional, these functions write the K/V
-caches in place (a decode step touches one row per slot, and copying the
-whole cache per step would double its memory traffic) and return the same
-dict with ``pos`` advanced.  Two rules keep the paged layout sound in place:
+caches and recurrent states in place (a decode step touches one row per
+slot, and copying the whole cache per step would double its memory
+traffic) and return the same dict with ``pos`` advanced.  Two rules keep the paged layout sound in place:
 ``paged_evict`` retargets the table and never touches a pool page (after
 the host frees it, a page may already hold another request), and a decode
 write lands at ``pos >= prompt_len``, never on a shared prefix page.
@@ -47,14 +50,15 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ATTN_FULL, ModelConfig
+from repro_torch.configs.base import ATTN_FULL, RECURRENT, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models.attention import (chunked_attention, decode_attention,
                                           paged_decode_attention)
 from repro_torch.models.transformer import (_MASK, ATTN_KINDS, RunCtx,
                                             _effective, _lm_head, _norm,
-                                            check_supported, layer_sigs,
-                                            stack_plan, take)
+                                            check_supported, embed, ffn_fwd,
+                                            layer_sigs, stack_plan, take)
 
 
 def _attn_cache_shape(cfg: ModelConfig, batch: int, cache_len: int,
@@ -65,10 +69,15 @@ def _attn_cache_shape(cfg: ModelConfig, batch: int, cache_len: int,
 
 def init_layer_cache(cfg: ModelConfig, batch: int, cache_len: int, kind: str,
                      window: int, dtype, device, reps: int = 0):
-    """Zero K/V for one attention layer (``reps`` > 0: stacked over them)."""
-    sh = _attn_cache_shape(cfg, batch, cache_len, kind, window)
-    if reps:
-        sh = (reps,) + sh
+    """Zero state for one layer (``reps`` > 0: stacked over them): K/V for
+    an attention layer, ``h`` (f32) and ``conv`` for an RG-LRU layer."""
+    lead = (reps,) if reps else ()
+    if kind == RECURRENT:
+        h, conv = rglru_lib.state_shapes(cfg, batch)
+        return {"h": torch.zeros(lead + h, dtype=torch.float32,
+                                 device=device),
+                "conv": torch.zeros(lead + conv, dtype=dtype, device=device)}
+    sh = lead + _attn_cache_shape(cfg, batch, cache_len, kind, window)
     return {"k": torch.zeros(sh, dtype=dtype, device=device),
             "v": torch.zeros(sh, dtype=dtype, device=device)}
 
@@ -121,33 +130,52 @@ def slot_insert(cache, slot: int, src, src_slot: int = 0, pages=None,
             raise ValueError("paged cache: slot_insert needs `pages`")
         return paged_insert(cache, slot, src, pages, src_slot,
                             skip_cols=skip_cols)
-    for j, cl in cache["unit"].items():
-        for name, dst in cl.items():
-            dst[:, slot] = src["unit"][j][name][:, src_slot]
-    for i, cl in cache["rest"].items():
-        for name, dst in cl.items():
-            dst[slot] = src["rest"][i][name][src_slot]
+    for part, name, dst, stacked in _layers_of(cache):
+        _copy_slot(dst, src[part][name], slot, src_slot, stacked)
     cache["pos"][slot] = src["pos"].reshape(-1)[src_slot]
     return cache
 
 
 def slot_evict(cache, slot: int):
-    """Release ``slot``: zero its K/V and reset its length.
+    """Release ``slot``: zero its state and reset its length.
 
     A freed slot keeps riding the batched step (its logits are ignored): at
-    ``pos`` 0 it reads one zeroed entry, masked by its kv_len of 1.  A paged
-    cache goes to :func:`paged_evict`.
+    ``pos`` 0 it reads one zeroed entry, masked by its kv_len of 1, and a
+    zeroed recurrent state stays finite.  A paged cache goes to
+    :func:`paged_evict`.
     """
     if _is_paged(cache):
         return paged_evict(cache, slot)
-    for cl in cache["unit"].values():
-        for dst in cl.values():
-            dst[:, slot] = 0
-    for cl in cache["rest"].values():
-        for dst in cl.values():
-            dst[slot] = 0
+    for _, _, dst, stacked in _layers_of(cache):
+        _zero_slot(dst, slot, stacked)
     cache["pos"][slot] = 0
     return cache
+
+
+def _layers_of(cache):
+    """(part, layer name, layer dict, stacked over repeats?) for every
+    layer of a cache."""
+    for part, stacked in (("unit", True), ("rest", False)):
+        for name, cl in cache[part].items():
+            yield part, name, cl, stacked
+
+
+def _copy_slot(dst, src, slot: int, src_slot: int, stacked: bool):
+    """Every leaf of layer ``dst`` at ``slot`` from ``src`` at ``src_slot``
+    (a stacked layer has the slot on axis 1)."""
+    for leaf, t in dst.items():
+        if stacked:
+            t[:, slot] = src[leaf][:, src_slot]
+        else:
+            t[slot] = src[leaf][src_slot]
+
+
+def _zero_slot(dst, slot: int, stacked: bool):
+    for t in dst.values():
+        if stacked:
+            t[:, slot] = 0
+        else:
+            t[slot] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -230,10 +258,11 @@ def init_paged_cache(cfg: ModelConfig, max_batch: int, cache_len: int,
     Each attention layer holds ``k``/``v`` pools (num_pages + max_batch, pg,
     kv, hd) (stacked over the unit's repeats) and ``bt`` (max_batch, ncols)
     int32 mapping its logical pages to pool rows, every entry at first the
-    slot's own scratch row ``num_pages + slot``; ``pos`` is a (max_batch,)
-    int32 vector.  Claim slots with :func:`paged_insert` (pages from a
-    :class:`~repro_torch.models.paging.PagePool`), release them with
-    :func:`paged_evict`.
+    slot's own scratch row ``num_pages + slot``; an RG-LRU layer keeps its
+    O(1) state slot-resident, as in :func:`init_slot_cache`; ``pos`` is a
+    (max_batch,) int32 vector.  Claim slots with :func:`paged_insert`
+    (pages from a :class:`~repro_torch.models.paging.PagePool`), release
+    them with :func:`paged_evict`.
     """
     pattern = tuple(pattern) if pattern is not None else cfg.pattern
     check_supported(cfg, pattern)
@@ -242,6 +271,9 @@ def init_paged_cache(cfg: ModelConfig, max_batch: int, cache_len: int,
                            dtype=torch.int32, device=dev)
 
     def layer(kind, window, reps=0):
+        if kind not in ATTN_KINDS:
+            return init_layer_cache(cfg, max_batch, cache_len, kind, window,
+                                    ctx.param_dtype, dev, reps)
         _, S, kv, hd = _attn_cache_shape(cfg, 1, cache_len, kind, window)
         pg, ncols = _layer_page_geometry(S, page_size)
         pool = (num_pages + max_batch, pg, kv, hd)
@@ -264,14 +296,6 @@ def init_paged_cache(cfg: ModelConfig, max_batch: int, cache_len: int,
     return cache
 
 
-def _paged_layers(cache):
-    """(part, layer name, layer dict, stacked over repeats?) for every
-    layer of a cache."""
-    for part, stacked in (("unit", True), ("rest", False)):
-        for name, cl in cache[part].items():
-            yield part, name, cl, stacked
-
-
 def paged_insert(cache, slot: int, src, pages: Sequence[int],
                  src_slot: int = 0, skip_cols: int = 0):
     """Copy one request out of a fixed-layout ``src`` of the same cache_len
@@ -287,12 +311,16 @@ def paged_insert(cache, slot: int, src, pages: Sequence[int],
     table maps them and nothing writes them.  Only the columns that map to
     the request's own pages are written, so no two writes hit one row (the
     unassigned columns all map to the one scratch row, and lie past every
-    position the request reaches, masked by its kv_len).
+    position the request reaches, masked by its kv_len).  Slot-resident
+    (RG-LRU) leaves are copied as :func:`slot_insert` copies them.
     """
     max_batch = cache["pos"].shape[0]
     pages = [int(p) for p in pages]
     dev = cache["pos"].device
-    for part, name, dst, stacked in _paged_layers(cache):
+    for part, name, dst, stacked in _layers_of(cache):
+        if "bt" not in dst:
+            _copy_slot(dst, src[part][name], slot, src_slot, stacked)
+            continue
         bt = dst["bt"]
         ncols = bt.shape[-1]
         rows_total, pg = dst["k"].shape[-4], dst["k"].shape[-3]
@@ -321,13 +349,17 @@ def paged_insert(cache, slot: int, src, pages: Sequence[int],
 
 
 def paged_evict(cache, slot: int):
-    """Release ``slot``: point its table row back at the slot's scratch row
-    and reset its length.  Pool pages are never touched: once the host has
-    freed them they may belong to another request.  Their old content needs
-    no cleanup (reads are kv_len-masked, ``paged_insert`` writes every page
-    it hands a new request)."""
+    """Release ``slot``: point its table row back at the slot's scratch row,
+    zero its slot-resident (RG-LRU) state and reset its length.  Pool pages
+    are never touched: once the host has freed them they may belong to
+    another request.  Their old content needs no cleanup (reads are
+    kv_len-masked, ``paged_insert`` writes every page it hands a new
+    request)."""
     max_batch = cache["pos"].shape[0]
-    for _, _, dst, stacked in _paged_layers(cache):
+    for _, _, dst, stacked in _layers_of(cache):
+        if "bt" not in dst:
+            _zero_slot(dst, slot, stacked)
+            continue
         scr = dst["k"].shape[-4] - max_batch + slot
         if stacked:
             dst["bt"][:, slot] = scr
@@ -394,13 +426,30 @@ def _step_index(pos, S: int, pg: int, b: int):
     return slot, kv_len, rows
 
 
-def _block_decode(bp, x, cl, cfg: ModelConfig, ctx: RunCtx, rope, index):
-    """One attention block for one token per slot; writes its K/V into
+def _block_decode(bp, x, cl, cfg: ModelConfig, ctx: RunCtx, sig, rope,
+                  index):
+    """One block for one token per slot; writes the layer's new state into
     ``cl`` in place.  ``rope``: (cos, sin) at the step's positions;
-    ``index``: ``_step_index`` for this cache's geometry."""
-    slot, kv_len, rows = index
+    ``index``: ``_step_index`` for an attention cache's geometry (None for
+    an RG-LRU layer)."""
+    kind, ffn = sig
     h = _norm(bp["norm1"], x, cfg)
-    q, k, v = L.qkv_proj(bp["attn"], h, cfg)
+    if kind == RECURRENT:
+        y, hh, conv = rglru_lib.rglru_decode_step(bp["rglru"], h, cl["h"],
+                                                  cl["conv"])
+        cl["h"].copy_(hh)
+        cl["conv"].copy_(conv)
+        x = x + y
+    else:
+        x = x + _attention_decode(bp["attn"], h, cl, cfg, ctx, rope, index)
+    return ffn_fwd(bp, x, cfg, ffn)[0]
+
+
+def _attention_decode(p, h, cl, cfg: ModelConfig, ctx: RunCtx, rope, index):
+    """Attention of one token per slot over the layer's cache, after
+    writing the token's K/V into it."""
+    slot, kv_len, rows = index
+    q, k, v = L.qkv_proj(p, h, cfg)
     cos, sin = rope
     q = L.apply_rotary(q, cos, sin)
     k = L.apply_rotary(k, cos, sin)
@@ -414,8 +463,7 @@ def _block_decode(bp, x, cl, cfg: ModelConfig, ctx: RunCtx, rope, index):
         cl["v"][page, off] = v[:, 0].to(cl["v"].dtype)
         o = paged_decode_attention(q, cl["k"], cl["v"], cl["bt"], kv_len,
                                    backend=ctx.decode_backend)
-        x = x + L.out_proj(bp["attn"], o)
-        return x + L.mlp(bp["mlp"], _norm(bp["norm2"], x, cfg))
+        return L.out_proj(p, o)
     if rows is not None:
         cl["k"][rows, slot] = k[:, 0].to(cl["k"].dtype)
         cl["v"][rows, slot] = v[:, 0].to(cl["v"].dtype)
@@ -424,20 +472,22 @@ def _block_decode(bp, x, cl, cfg: ModelConfig, ctx: RunCtx, rope, index):
         cl["v"].index_copy_(1, slot.reshape(1), v.to(cl["v"].dtype))
     o = decode_attention(q, cl["k"], cl["v"], kv_len,
                          backend=ctx.decode_backend)
-    x = x + L.out_proj(bp["attn"], o)
-    return x + L.mlp(bp["mlp"], _norm(bp["norm2"], x, cfg))
+    return L.out_proj(p, o)
 
 
 def _layers(params, cache, cfg: ModelConfig, pattern):
-    """(block params, layer cache, effective kind, window) in stack order."""
-    u, reps, rem = stack_plan(layer_sigs(cfg))
+    """(block params, layer cache, signature, effective kind, window) in
+    stack order."""
+    sigs = layer_sigs(cfg)
+    u, reps, rem = stack_plan(sigs)
     for r in range(reps):
         bps, cls = take(params["unit"], r), take(cache["unit"], r)
         for j in range(u):
-            yield (bps[f"p{j}"], cls[f"p{j}"]) + _effective(cfg, pattern, j)
+            yield ((bps[f"p{j}"], cls[f"p{j}"], sigs[j])
+                   + _effective(cfg, pattern, j))
     for i in range(rem):
         li = u * reps + i
-        yield ((params["rest"][f"l{li}"], cache["rest"][f"l{li}"])
+        yield ((params["rest"][f"l{li}"], cache["rest"][f"l{li}"], sigs[li])
                + _effective(cfg, pattern, li))
 
 
@@ -455,15 +505,15 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, ctx: RunCtx,
     """
     pattern = tuple(pattern) if pattern is not None else cfg.pattern
     pos = cache["pos"]
-    x = params["embed"][tokens].to(ctx.compute_dtype)
+    x = embed(params, tokens, cfg, ctx)
     rope = L.rope_angles(pos[:, None] if pos.ndim == 1 else pos[None],
                          cfg.resolved_head_dim, cfg.rope_theta)
-    index = {}
-    for bp, cl, _, _ in _layers(params, cache, cfg, pattern):
-        geom = _layer_len(cl)
+    index = {None: None}
+    for bp, cl, sig, _, _ in _layers(params, cache, cfg, pattern):
+        geom = _layer_len(cl) if sig[0] != RECURRENT else None
         if geom not in index:
             index[geom] = _step_index(pos, *geom, tokens.shape[0])
-        x = _block_decode(bp, x, cl, cfg, ctx, rope, index[geom])
+        x = _block_decode(bp, x, cl, cfg, ctx, sig, rope, index[geom])
     logits = _head(params, x[:, 0], cfg)
     cache["pos"] = pos + 1
     return logits, cache
@@ -487,9 +537,13 @@ class ChunkedPrefill:
     backend=ctx.prefill_backend)`` (``flash_attention`` on the card).  SWA
     layers keep the carry contiguous too (attention over the in-flight K/V
     is exact; the ring only constrains what later decode steps can see).
-    The last chunk writes each layer's K/V into the cache as it goes,
+    An RG-LRU layer carries its ``h`` and conv taps from chunk to chunk.
+    The last chunk writes each layer's state into the cache as it goes,
     folding SWA layers into their ring, so the one-chunk case does the
-    fused prefill's work in its order.
+    fused prefill's work in its order.  A MoE layer routes each chunk in
+    groups of ``min(group_size, chunk)`` tokens, as the reference's does, so
+    chunking changes its output only where a group's capacity drops
+    tokens.
 
     Prefix sharing: ``start_token``/``prefix_kv`` seed the carry with the
     first ``start_token`` tokens' K/V (from :func:`gather_prefix_kv`), so
@@ -538,22 +592,43 @@ class ChunkedPrefill:
         hi = min(lo + int(n_tokens), self.total)
         if hi <= lo:
             return 0
-        x = self.params["embed"][self.tokens[:, lo:hi]].to(ctx.compute_dtype)
+        x = embed(self.params, self.tokens[:, lo:hi], cfg, ctx)
         rope = L.rope_angles(torch.arange(lo, hi, device=x.device),
                              cfg.resolved_head_dim, cfg.rope_theta)
         last = hi == self.total
-        for li, (bp, cl, kind, window) in enumerate(self._layers):
-            x = self._block(bp, x, li, cl, kind, window, rope, lo, last)
+        for li, (bp, cl, sig, kind, window) in enumerate(self._layers):
+            x = self._block(bp, x, li, cl, sig, kind, window, rope, lo, last)
         self._logits = _head(self.params, x[:, -1], cfg)
         self.done_tokens = hi
         return hi - lo
 
-    def _block(self, bp, x, li, cl, kind, window, rope, lo, last):
+    def _block(self, bp, x, li, cl, sig, kind, window, rope, lo, last):
         """One block over chunk ``[lo, hi)``; the last chunk writes the
-        layer's whole K/V into ``cl`` in place and drops its carry."""
+        layer's state into ``cl`` in place and drops its carry."""
         cfg = self.cfg
         h = _norm(bp["norm1"], x, cfg)
-        q, k, v = L.qkv_proj(bp["attn"], h, cfg)
+        if sig[0] == RECURRENT:
+            x = x + self._recurrent(bp["rglru"], h, li, cl, last)
+        else:
+            x = x + self._attention(bp["attn"], h, li, cl, kind, window,
+                                    rope, lo, last)
+        return ffn_fwd(bp, x, cfg, sig[1])[0]
+
+    def _recurrent(self, p, h, li, cl, last):
+        st = self._carry[li]
+        y, (hh, conv) = rglru_lib.rglru_block(
+            p, h, h0=None if st is None else st["h"],
+            conv0=None if st is None else st["conv"], return_state=True)
+        if last:
+            self._carry[li] = None
+            cl["h"].copy_(hh)
+            cl["conv"].copy_(conv)
+        else:
+            self._carry[li] = {"h": hh, "conv": conv}
+        return y
+
+    def _attention(self, p, h, li, cl, kind, window, rope, lo, last):
+        q, k, v = L.qkv_proj(p, h, self.cfg)
         cos, sin = rope
         q = L.apply_rotary(q, cos, sin)
         k = L.apply_rotary(k, cos, sin)
@@ -568,8 +643,7 @@ class ChunkedPrefill:
             self._carry[li] = {"k": k, "v": v}
         o = chunked_attention(q, k, v, kind=_MASK[kind], window=window,
                               q_offset=lo, backend=self.ctx.prefill_backend)
-        x = x + L.out_proj(bp["attn"], o)
-        return x + L.mlp(bp["mlp"], _norm(bp["norm2"], x, cfg))
+        return L.out_proj(p, o)
 
     def finish(self):
         """(last-position logits, filled cache): ``prefill_cache``'s return

@@ -7,10 +7,14 @@ leaf stacked over its repeats on axis 0) and ``rest`` (remainder layers).
 Where the reference scans over the stacked unit, the port walks it with a
 Python loop.
 
-The port covers attention blocks with dense FFNs (the ``dense`` family:
-qwen2, qwen1.5, internlm2, mistral-large); every other family or block kind
-raises ``NotImplementedError`` naming the ROADMAP item that will port it.
-The training forward (:func:`forward_hidden`, :func:`lm_loss`) is
+The port covers the ``dense`` family (qwen2, qwen1.5, internlm2,
+mistral-large: attention blocks with dense FFNs), the ``moe`` family
+(mixtral, llama4: MoE FFNs from ``models/moe.py``, with llama4's shared
+experts and interleaved ``dense_alt`` FFNs) and the ``hybrid`` family
+(recurrentgemma: RG-LRU blocks from ``models/rglru.py`` beside local
+attention, and the gemma embedding scale).  Every other family or block
+kind raises ``NotImplementedError`` naming the ROADMAP item that will port
+it.  The training forward (:func:`forward_hidden`, :func:`lm_loss`) is
 differentiated by autograd; its attention is the plain version, as the
 reference's training path takes its jax attention, because the attention
 kernels have no backward.
@@ -25,11 +29,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import (ATTN_FULL, ATTN_LOCAL, ATTN_SWA, MLSTM,
-                                      SLSTM, ModelConfig)
+                                      RECURRENT, SLSTM, ModelConfig)
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models.attention import chunked_attention
 
 ATTN_KINDS = (ATTN_FULL, ATTN_SWA, ATTN_LOCAL)
+FAMILIES = ("dense", "moe", "hybrid")
+BLOCK_KINDS = ATTN_KINDS + (RECURRENT,)
 
 # ---------------------------------------------------------------------------
 # run context
@@ -92,25 +100,20 @@ def stack_plan(sigs: Sequence[Tuple[str, str]]) -> Tuple[int, int, int]:
 
 
 _NOT_PORTED = ("ROADMAP.md, 'Modules to port': the serving model zoo "
-               "(MoE, recurrent, xLSTM, whisper and VLM blocks)")
+               "(xLSTM, whisper and VLM blocks)")
 
 
 def check_supported(cfg: ModelConfig,
                     pattern: Optional[Sequence[str]] = None) -> None:
-    """Raise ``NotImplementedError`` unless this slice serves ``cfg``."""
-    if cfg.family != "dense":
+    """Raise ``NotImplementedError`` unless the port serves ``cfg``."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
             f"({_NOT_PORTED})")
     kinds = set(pattern if pattern is not None else cfg.pattern)
-    for kind, ffn in layer_sigs(cfg):
-        kinds.add(kind)
-        if ffn != "dense":
-            raise NotImplementedError(
-                f"{cfg.name}: FFN kind {ffn!r} is not ported yet "
-                f"({_NOT_PORTED})")
+    kinds.update(kind for kind, _ in layer_sigs(cfg))
     for kind in kinds:
-        if kind not in ATTN_KINDS:
+        if kind not in BLOCK_KINDS:
             raise NotImplementedError(
                 f"{cfg.name}: block kind {kind!r} is not ported yet "
                 f"({_NOT_PORTED})")
@@ -130,14 +133,43 @@ def _norm(p, x, cfg: ModelConfig):
     return L.rms_norm(x, p["scale"], eps=cfg.norm_eps)
 
 
-def init_block(gen, cfg: ModelConfig, dtype, device) -> Dict[str, Any]:
-    """One attention block with a dense FFN."""
-    return {
-        "norm1": _init_norm(cfg, dtype, device),
-        "attn": L.init_attention(gen, cfg, dtype, device),
-        "norm2": _init_norm(cfg, dtype, device),
-        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device),
-    }
+def init_block(gen, cfg: ModelConfig, sig: Tuple[str, str], dtype,
+               device) -> Dict[str, Any]:
+    """One block of signature ``sig`` = (kind, ffn kind)."""
+    kind, ffn = sig
+    p: Dict[str, Any] = {"norm1": _init_norm(cfg, dtype, device)}
+    if kind == RECURRENT:
+        p["rglru"] = rglru_lib.init_rglru(gen, cfg, dtype, device)
+    else:
+        p["attn"] = L.init_attention(gen, cfg, dtype, device)
+    if ffn != "none":
+        p["norm2"] = _init_norm(cfg, dtype, device)
+        if ffn == "moe":
+            p["moe"] = moe_lib.init_moe(gen, cfg, dtype, device)
+        else:
+            d_ff = cfg.moe.dense_d_ff if ffn == "dense_alt" else cfg.d_ff
+            p["mlp"] = L.init_mlp(gen, cfg.d_model, d_ff, dtype, device)
+    return p
+
+
+def ffn_fwd(p, x, cfg: ModelConfig, ffn: str):
+    """The block's FFN half: x + FFN(norm2(x)) -> (x, aux loss or None)."""
+    if ffn == "none":
+        return x, None
+    h = _norm(p["norm2"], x, cfg)
+    if ffn == "moe":
+        y, aux = moe_lib.moe_ffn(p["moe"], h, cfg)
+        return x + y, aux
+    return x + L.mlp(p["mlp"], h), None
+
+
+def embed(params, tokens, cfg: ModelConfig, ctx: "RunCtx"):
+    """Token embeddings in the compute dtype; the hybrid family scales them
+    by sqrt(d_model), as gemma does."""
+    x = params["embed"][tokens].to(ctx.compute_dtype)
+    if cfg.family == "hybrid":
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
 
 
 def _effective(cfg: ModelConfig, pattern, li):
@@ -151,10 +183,30 @@ def _effective(cfg: ModelConfig, pattern, li):
     return kind, window
 
 
-def _stack(trees: List[Dict[str, Any]]) -> Dict[str, Any]:
-    return {k: (_stack([t[k] for t in trees]) if isinstance(v, dict)
-                else torch.stack([t[k] for t in trees]))
-            for k, v in trees[0].items()}
+def _init_stacked(make, reps: int) -> Dict[str, Any]:
+    """``reps`` trees from ``make()``, each leaf stacked on a new axis 0.
+    Each tree is copied into the stack as it is made, so at most one
+    unstacked tree is alive beside the stack."""
+    def alloc(t):
+        return {k: alloc(v) if isinstance(v, dict) else
+                torch.empty((reps,) + v.shape, dtype=v.dtype, device=v.device)
+                for k, v in t.items()}
+
+    def put(dst, t, r):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                put(dst[k], v, r)
+            else:
+                dst[k][r] = v
+
+    out = None
+    for r in range(reps):
+        tree = make()
+        if out is None:
+            out = alloc(tree)
+        put(out, tree, r)
+        del tree            # before the next make(): one tree at a time
+    return out
 
 
 def take(tree: Dict[str, Any], r: int) -> Dict[str, Any]:
@@ -186,11 +238,13 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
         params["lm_head"] = L.dense_init(gen, cfg.d_model,
                                          cfg.padded_vocab_size, dtype, dev)
     params["unit"] = {
-        f"p{j}": _stack([init_block(gen, cfg, dtype, dev)
-                         for _ in range(reps)])
+        f"p{j}": _init_stacked(
+            lambda: init_block(gen, cfg, sigs[j], dtype, dev), reps)
         for j in range(u)}
-    params["rest"] = {f"l{u * reps + i}": init_block(gen, cfg, dtype, dev)
-                      for i in range(rem)}
+    params["rest"] = {
+        f"l{u * reps + i}": init_block(gen, cfg, sigs[u * reps + i], dtype,
+                                       dev)
+        for i in range(rem)}
     return params
 
 
@@ -210,11 +264,19 @@ def _attention_fwd(p, x, cfg: ModelConfig, eff_kind: str, window: int, rope):
     return L.out_proj(p, o)
 
 
-def block_fwd(p, x, cfg: ModelConfig, eff_kind: str, window: int, rope):
-    """One attention block with a dense FFN, training path. x (b, s, d)."""
+def block_fwd(p, x, cfg: ModelConfig, sig: Tuple[str, str], eff_kind: str,
+              window: int, rope):
+    """One block, training path. x (b, s, d) -> (x, aux loss f32)."""
+    kind, ffn = sig
     h = _norm(p["norm1"], x, cfg)
-    x = x + _attention_fwd(p["attn"], h, cfg, eff_kind, window, rope)
-    return x + L.mlp(p["mlp"], _norm(p["norm2"], x, cfg))
+    if kind == RECURRENT:
+        x = x + rglru_lib.rglru_block(p["rglru"], h)
+    else:
+        x = x + _attention_fwd(p["attn"], h, cfg, eff_kind, window, rope)
+    x, aux = ffn_fwd(p, x, cfg, ffn)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def _unbind(tree: Dict[str, Any], reps: int) -> List[Dict[str, Any]]:
@@ -230,33 +292,39 @@ def forward_hidden(params, tokens, cfg: ModelConfig, ctx: RunCtx,
                    pattern: Optional[Sequence[str]] = None, positions=None):
     """tokens (b, s) -> (hidden (b, s, d) after the final norm, aux loss).
 
-    The aux loss is 0 for the dense family (the reference adds MoE balance
-    losses there).  ``ctx.remat`` checkpoints each repeat of the stack unit,
-    as the reference's ``jax.checkpoint(unit_body)``.
+    The aux loss is the sum over MoE layers of their load-balance losses (0
+    without MoE layers).  ``ctx.remat`` checkpoints each repeat of the stack
+    unit, as the reference's ``jax.checkpoint(unit_body)``.
     """
     check_supported(cfg, pattern)
     pattern = tuple(pattern) if pattern is not None else cfg.pattern
-    u, reps, rem = stack_plan(layer_sigs(cfg))
-    x = params["embed"][tokens].to(ctx.compute_dtype)
+    sigs = layer_sigs(cfg)
+    u, reps, rem = stack_plan(sigs)
+    x = embed(params, tokens, cfg, ctx)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=x.device)
     rope = L.rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
-    def unit_body(x, unit_p):
+    def unit_body(x, aux, unit_p):
         for j in range(u):
             kind, window = _effective(cfg, pattern, j)  # periodic: li % u == j
-            x = block_fwd(unit_p[f"p{j}"], x, cfg, kind, window, rope)
-        return x
+            x, a = block_fwd(unit_p[f"p{j}"], x, cfg, sigs[j], kind, window,
+                             rope)
+            aux = aux + a
+        return x, aux
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for unit_p in _unbind(params["unit"], reps):
-        x = (checkpoint(unit_body, x, unit_p, use_reentrant=False)
-             if ctx.remat else unit_body(x, unit_p))
+        x, aux = (checkpoint(unit_body, x, aux, unit_p, use_reentrant=False)
+                  if ctx.remat else unit_body(x, aux, unit_p))
     for i in range(rem):
         li = u * reps + i
         kind, window = _effective(cfg, pattern, li)
-        x = block_fwd(params["rest"][f"l{li}"], x, cfg, kind, window, rope)
+        x, a = block_fwd(params["rest"][f"l{li}"], x, cfg, sigs[li], kind,
+                         window, rope)
+        aux = aux + a
     x = _norm(params["final_norm"], x, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------

@@ -69,6 +69,12 @@ def test_scan_covers_the_trainer_slice():
             "fleet/engine.py", "fleet/control.py"} <= scanned
 
 
+def test_scan_covers_the_moe_and_hybrid_slice():
+    scanned = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in PORT_FILES[:-1]}
+    assert {"models/moe.py", "models/rglru.py"} <= scanned
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_port_imports_no_jax_and_no_repro(path):

@@ -337,7 +337,7 @@ def test_forward_loss_and_grad_match_jax(remat):
 
 
 def test_forward_refuses_other_families():
-    cfg = get_config("mixtral-8x22b").reduced()
+    cfg = get_config("xlstm-125m").reduced()
     with pytest.raises(NotImplementedError):
         forward_hidden({}, torch.zeros((1, 4), dtype=torch.long), cfg,
                        RunCtx(device="cpu"))
