@@ -142,18 +142,23 @@ package.  Phases, each fatal on failure (exit code 1, no result line):
    the result line.
 
 Phase 2 also fails if any instance of the decode kernel
-(``flash_decode_kernel``) or of the prefill kernel (``flash_fwd_wgmma``,
-``flash_fwd_fma``) spills registers.  Phase 4 also checks the split-K
-decode: kv_len at every split edge of a 16 384-token context (f32, bf16;
-contiguous, pages of 16 and of 5); an S the split does not divide; g 16 at
-hd 64 and 256; and the prefill kernel at an 8 192-token causal prompt (f32
-and bf16), a 64-query chunk at its end (q_offset 8 128, f32) and hd 128
-with g 6 at a ragged 200 (f32 and bf16); every attention call repeated bit
-for bit.  Phase 9 times both decode entries at the serving shape and at S
+(``flash_decode_kernel``) or of the prefill kernel (``flash_fwd_wgmma``)
+spills registers, and logs the registers and shared memory of the f32
+hd-256 instance, whose head dim is split over a cluster of two blocks.
+Phase 4 also checks the split-K decode: kv_len at every split edge of a
+16 384-token context (f32, bf16; contiguous, pages of 16 and of 5); an S
+the split does not divide; g 16 at hd 64 and 256; and the prefill kernel
+at an 8 192-token causal prompt (f32 and bf16), a 64-query chunk at its
+end (q_offset 8 128, f32), hd 128 with g 6 at a ragged 200 (f32 and
+bf16), and f32 hd 256 at recurrentgemma's shapes, a ragged bidir 130, a
+causal q_offset on a key-tile edge and a 64-query chunk past the window
+(q_offset 4 032 over 4 096 keys); every attention call repeated bit for
+bit.  Phase 9 times both decode entries at the serving shape and at S
 = kv_len = 16 384, and ``flash_attention`` at the serving shape and at an
 8 192-token prompt, f32 and bf16, its f32 bound at the 3xTF32 rate
-(``time_attention``, which takes the kernel module as an argument, so a
-parent tree's kernel can be timed by the same code).
+(``time_attention``), and at recurrentgemma-2b's prefill shapes
+(``time_zoo_kernels``); both take the kernel module as an argument, so a
+parent tree's kernel can be timed by the same code.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": 1}}``.
@@ -305,7 +310,7 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def build(build_mod) -> None:
+def build(build_mod, fa) -> None:
     t0 = time.perf_counter()
     libs = build_mod.build_all(KERNEL_SOURCES)
     log(f"# built {len(libs)} kernel libraries in "
@@ -318,18 +323,27 @@ def build(build_mod) -> None:
                     log(f"#   {lib.name}: {line.strip()}")
     check_no_spills(build_mod.lib_path("flash_decode").with_suffix(".log"),
                     "flash_decode_kernel")
-    check_no_spills(
-        build_mod.lib_path("flash_attention").with_suffix(".log"),
-        "flash_fwd")
+    fa_log = build_mod.lib_path("flash_attention").with_suffix(".log")
+    regs = check_no_spills(fa_log, "flash_fwd")
+    # the f32 hd-256 instance (template arguments <float, 256, 1>), split
+    # over a cluster of two blocks
+    split = [r for name, r in regs.items() if "flash_fwd_wgmmaIfLi256E" in name]
+    lib = build_mod.load("flash_attention", fa._ARGTYPES)
+    smem = lib.flash_attention_smem(256, 0, 64)
+    log(f"#   flash_fwd_wgmma<float, 256, 1> (a cluster of two blocks): "
+        f"{split} registers, {smem} bytes of dynamic shared memory a block")
+    if len(split) != 1 or smem <= 0:
+        fail("no f32 hd-256 instance of flash_fwd_wgmma in the ptxas report")
 
 
-def check_no_spills(report: Path, kernel: str) -> None:
+def check_no_spills(report: Path, kernel: str) -> dict:
     """Fail if ptxas reports a spill for any instance of ``kernel`` in a
     library's build log (``-Xptxas -v``: a "Function properties for
-    <name>" line, then its stack frame and spill bytes)."""
+    <name>" line, then its stack frame and spill bytes).  Returns each
+    instance's registers by mangled name."""
     if not report.exists():
         fail(f"no ptxas report {report.name} beside the library")
-    name, n, spilled, regs = "", 0, [], []
+    name, n, spilled, regs = "", 0, [], {}
     for line in report.read_text().splitlines():
         if "Function properties for" in line:
             name = line.rsplit(" ", 1)[-1]
@@ -340,12 +354,14 @@ def check_no_spills(report: Path, kernel: str) -> None:
             if " 0 bytes spill stores, 0 bytes spill loads" not in line:
                 spilled.append(f"{name}: {line.strip()}")
         elif "Used" in line and "registers" in line:
-            regs.append(int(line.split("Used")[1].split()[0]))
+            regs[name] = int(line.split("Used")[1].split()[0])
     log(f"#   {kernel}: {n} instances, {len(spilled)} with spills, "
-        f"{min(regs, default=0)}-{max(regs, default=0)} registers")
+        f"{min(regs.values(), default=0)}-{max(regs.values(), default=0)} "
+        "registers")
     if n == 0 or spilled:
         fail(f"{kernel} spills registers (or ptxas reported no instance): "
              f"{spilled[:4]}")
+    return regs
 
 
 # ---------------------------------------------------------------------------
@@ -401,13 +417,22 @@ def check_kernels(torch, fa, fd):
         ("hd128 g6 ragged", 1, 200, 200, 48, 8, 128, "causal", 0, 0,
          "bfloat16"),
         # the shapes of phases 6b, 6c and 7e: recurrentgemma-2b's local
-        # attention (the FMA body) and mixtral-8x22b's SWA
+        # attention (f32 hd 256, split over a cluster) and mixtral-8x22b's
+        # SWA
         ("recurrentgemma prefill", 8, 128, 128, 10, 1, 256, "swa", 2048, 0,
          "float32"),
         ("recurrentgemma past the window", 1, 2112, 2112, 10, 1, 256, "swa",
          2048, 0, "float32"),
         ("recurrentgemma chunk", 1, 64, 192, 10, 1, 256, "swa", 2048, 128,
          "float32"),
+        # more of the split f32 hd-256 body: a ragged bidir tile, a causal
+        # q_offset on a key-tile edge, a chunk past the window
+        ("hd256 bidir ragged", 1, 130, 130, 10, 1, 256, "bidir", 0, 0,
+         "float32"),
+        ("hd256 causal+q_offset on a tile edge", 2, 96, 160, 10, 1, 256,
+         "causal", 0, 64, "float32"),
+        ("hd256 chunk past the window", 1, 64, 4096, 10, 1, 256, "swa", 2048,
+         4032, "float32"),
         ("mixtral prefill", 8, 128, 128, 48, 8, 128, "swa", 4096, 0,
          "float32"),
     ]
@@ -2656,7 +2681,7 @@ def main() -> None:
     from repro_torch.tree import leaves
     mods = types.SimpleNamespace(fa=fa, fd=fd, bt=bt, sa=sa)
 
-    build(_build)
+    build(_build, fa)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

@@ -89,11 +89,49 @@
 //
 // Instances (dtype, hd: key tile BK, NWG): f32 32/64: BK 64, NWG 1 or 2;
 // f32 128: BK 32, NWG 1 (Q hi and lo in shared memory, one converted
-// buffer: 199 KB); bf16 32/64/128: BK 64, NWG 1 or 2; bf16 256: BK 32, NWG
-// 1 or 2.  **f32 hd 256 keeps the FMA body** (`flash_fwd_fma`, f32 FMAs
-// on the CUDA cores, query tiles of 64): Q hi and lo alone would take 128 KB
-// of shared memory at hd 256, beside a ring and a converted buffer.  Only
-// tests reach it.  This is a fixed dispatch by shape, never a fallback.
+// buffer: 199 KB); f32 256: the f32 128 tiles on each half of the head dim,
+// a cluster of two blocks (below); bf16 32/64/128: BK 64, NWG 1 or 2; bf16
+// 256: BK 32, NWG 1 or 2.  This is a fixed dispatch by shape, never a
+// fallback.
+//
+// f32 at hd 256 (recurrentgemma-2b's local attention: h 10, kv 1, window
+// 2 048, on the serving path) splits the head dim over a cluster of two
+// blocks.  One block cannot hold it: Q hi and lo alone take 128 KB of
+// shared memory at hd 256 and one converted K/V buffer of 32 keys another
+// 128 KB, and in registers Q hi and lo would take 256 a thread beside 128
+// of O.  So each 64-query tile of a head goes to a cluster (2, 1, 1), and
+// block rank r holds dimensions [128 r, 128 r + 128) of Q, K, V and O: it
+// runs the f32 hd-128 tiles on its half (TMA boxes of 128 columns at
+// column 128 r) and computes its partial S_r = Q_r K_r^T.
+//   * The handoff.  Each consumer thread stores its 16 accumulator values
+//     of S_r into the peer's shared memory with st.async, which completes
+//     bytes of the peer's mbarrier (two 8 KB slots, each with its barrier,
+//     used by turns); one thread of each block sets the 8 KB it expects.
+//     A thread then waits on its own barrier and adds the peer's values:
+//     f32 addition commutes, so both blocks hold S bit for bit alike, run
+//     the same softmax to the same P, m and l, and each runs O_r += P V_r
+//     and writes its half of O.  No atomics: a call is bit-identical to its
+//     repeat.  A block rewrites a slot two tiles after its last write, once
+//     it has received the peer's partial of the tile between, which the
+//     peer sent after reading that slot: no "empty" barrier is needed.  No
+//     block-wide barrier either (a cluster.sync() per tile would stop all
+//     four warpgroups of the pair), and no release fence per thread (a
+//     release-arrive on the peer's barrier from each of 128 threads was
+//     slower on the H100: PERF.md, tools/prefill_ablation.py).
+//   * The pipeline.  K and V convert in stages of their own (raw rings and
+//     barriers apart), and the consumer runs tile t's P V while it waits
+//     for the peer's partial of tile t + 1, so the handoff's latency and
+//     the conversions hide behind products.
+//   * Q hi also sits in registers (64 a thread) as the A fragment, so two
+//     of S's three products read only K from shared memory, whose
+//     bandwidth bounds the ss product at N = 32.
+// Shared memory: the 199 KB of hd-128 tiles plus the two slots, 215 KB, one
+// block an SM; twice as many blocks as query tiles (660 for a 2 112-token
+// prompt).  What bounds it: the 3xTF32 products (22.8 GFLOP of f32 work
+// at a 2 112-token prompt, 0.138 ms at 495/3 TFLOP/s).  It runs at 40 % of
+// that (PERF.md): one consumer warpgroup a block runs S, the softmax and
+// P V in series, and S's ss products at N = 32 run well below the tensor
+// cores' rate.
 #include <math.h>
 #include <stdint.h>
 
@@ -215,6 +253,38 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// the cluster of the f32 hd-256 instance: this block's rank, the peer's
+// shared::cluster address of a local object, stores into the peer, the
+// cluster barrier
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+__device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(saddr(p)), "r"(rank));
+  return r;
+}
+// a 16-byte store into the peer's shared memory that, once written,
+// completes 16 bytes of the transaction count of an mbarrier there
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float a, float b,
+                                            float c, float d, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
 // wgmma shared-memory descriptor, no swizzle: start address, leading byte
 // offset (between core matrices along K), stride byte offset (between
 // 8-row groups), all in 16-byte units
@@ -234,36 +304,52 @@ template <typename T, int HD, int NWG> struct Cfg {
   static constexpr int KC = 16 / ES;      // elements in a core-matrix row
   static constexpr int PL = F32 ? 2 : 1;  // operand planes: hi, lo
   static constexpr int KSTEP = F32 ? 8 : 16;
-  static constexpr int BK = (HD >= 256 || (F32 && HD >= 128)) ? 32 : 64;
-  static constexpr bool QREG = F32 ? HD <= 64 : HD <= 128;
+  // blocks a head's dims are split over (a cluster), and the dims W each
+  // holds; the tiles below are a block's, W wide
+  static constexpr int SPLIT = (F32 && HD == 256) ? 2 : 1;
+  static constexpr int W = HD / SPLIT;
+  static constexpr int BK = (W >= 256 || (F32 && W >= 128)) ? 32 : 64;
+  static constexpr bool QREG = F32 ? W <= 64 : W <= 128;
+  // a split block also keeps Q hi in registers, so two of S's three
+  // products read only K from shared memory (its bandwidth bounds them)
+  static constexpr bool QHI = SPLIT == 2;
   static constexpr int STAGES = 2;
-  static constexpr int NBUF = (F32 && HD >= 128) ? 1 : 2;
+  static constexpr int NBUF = (F32 && W >= 128) ? 1 : 2;
   static constexpr int NW = NWG;
   static constexpr int NT = 128 * (NWG + 1);
-  static constexpr int RAW = BK * HD * ES;  // one raw [BK][HD] tile
-  // K (BK x HD, K-major): element (r, c) at (c / KC) * LBO_K +
+  static constexpr int RAW = BK * W * ES;  // one raw [BK][W] tile
+  // K (BK x W, K-major): element (r, c) at (c / KC) * LBO_K +
   // (r / 8) * SBO + (r % 8) * 16 + (c % KC) * ES
   static constexpr int SBO = 128, LBO_K = BK * 16 + SBO / 8;
-  static constexpr int KPLANE = (HD / KC) * LBO_K;
-  // V^T (HD x BK, K-major in keys): element (d, pos) at (pos / KC) * LBO_V
+  static constexpr int KPLANE = (W / KC) * LBO_K;
+  // V^T (W x BK, K-major in keys): element (d, pos) at (pos / KC) * LBO_V
   // + (d / 8) * SBO_V + (d % 8) * 16 + (pos % KC) * ES
-  static constexpr int SBO_V = 144, LBO_V = (HD / 8) * SBO_V;
+  static constexpr int SBO_V = 144, LBO_V = (W / 8) * SBO_V;
   static constexpr int VPLANE = (BK / KC) * LBO_V;
   static constexpr int OFF_V = PL * KPLANE;  // K hi, [K lo,] V^T hi, [lo]
   static constexpr int BUF = (PL * (KPLANE + VPLANE) + 1023) / 1024 * 1024;
-  // Q (64 x HD per consumer) when not in registers, laid out as K
+  // Q (64 x W per consumer) when not in registers, laid out as K
   static constexpr int LBO_Q = 64 * 16 + SBO / 8;
-  static constexpr int QPLANE = QREG ? 0 : (HD / KC) * LBO_Q;
+  static constexpr int QPLANE = QREG ? 0 : (W / KC) * LBO_Q;
   static constexpr int OFF_BUF = STAGES * 2 * RAW;
   static constexpr int OFF_Q = OFF_BUF + NBUF * BUF;
-  static constexpr int OFF_BAR = OFF_Q + NWG * PL * QPLANE;
-  // barriers: full_raw[STAGES], full_cv[NBUF], empty_cv[NBUF]; + alignment
-  static constexpr int SMEM = OFF_BAR + 8 * (STAGES + 2 * NBUF) + 1024;
+  // with a split, two slots of a 64 x BK f32 partial S written by the peer:
+  // float4 j of consumer thread t at (128 j + t) * 16 bytes
+  static constexpr int XSLOT = 64 * BK * 4;
+  static constexpr int OFF_X = OFF_Q + NWG * PL * QPLANE;
+  static constexpr int OFF_BAR = OFF_X + (SPLIT == 2 ? 2 * XSLOT : 0);
+  // barriers: full_raw[STAGES], full_cv[NBUF], empty_cv[NBUF]; with a
+  // split raw_k[STAGES], raw_v[STAGES], full_k, empty_k, full_v, empty_v,
+  // xfull[2] (the peer's partial S is in slot b); + alignment
+  static constexpr int NBAR =
+      SPLIT == 2 ? 2 * STAGES + 6 : STAGES + 2 * NBUF;
+  static constexpr int SMEM = OFF_BAR + 8 * NBAR + 1024;
   static_assert(SMEM <= 232448, "tiles exceed 227 KB of shared memory");
-  static_assert(HD % 32 == 0 && BK % 16 == 0, "tile shapes");
+  static_assert(W % 32 == 0 && BK % 16 == 0, "tile shapes");
+  static_assert(SPLIT == 1 || NWG == 1, "a split block has one consumer");
 };
 
-// raw K [BK][HD] -> K planes (16-byte chunks; 8 consecutive threads read
+// raw K [BK][W] -> K planes (16-byte chunks; 8 consecutive threads read
 // one row's 128 contiguous bytes and write 8 conflict-free core rows)
 template <class C>
 __device__ __forceinline__ void convert_k(const unsigned char* raw,
@@ -288,13 +374,13 @@ __device__ __forceinline__ void convert_k(const unsigned char* raw,
   }
 }
 
-// raw V [BK][HD] -> V^T planes.  An item is 8 keys (group g) x 4 dims
+// raw V [BK][W] -> V^T planes.  An item is 8 keys (group g) x 4 dims
 // (quad dq).  f32: position 8g + 4 * par + m of row d holds key
 // 8g + 2m + par (the key permutation above).  bf16: position = key.
 template <class C>
 __device__ __forceinline__ void convert_v(const unsigned char* raw,
                                           unsigned char* dst, int tid) {
-  constexpr int NQ = C::RAW / C::BK / (4 * C::ES);  // dim quads: HD / 4
+  constexpr int NQ = C::RAW / C::BK / (4 * C::ES);  // dim quads: W / 4
 #pragma unroll 2
   for (int it = tid; it < (C::BK / 8) * NQ; it += 128) {
     const int g = it / NQ, dq = it % NQ;
@@ -353,6 +439,7 @@ __device__ __forceinline__ void convert_v(const unsigned char* raw,
 
 struct Geo {  // what the producer and the consumers share about a block
   int bi, head, kh, q0;
+  int rank, col;  // rank in the cluster; first head dim the block holds
   Range r;
 };
 
@@ -394,13 +481,61 @@ __device__ __forceinline__ void producer(const CUtensorMap* tk,
   }
 }
 
+// The producer of a split block (one converted buffer): K and V convert
+// in stages of their own, each with its raw ring and its full/empty
+// barriers, in the order K(0), then K(t + 1), V(t) for each tile t.  The
+// consumer runs tile t's P V one tile late (after scoring tile t + 1), so
+// K(t + 1) converts while it finishes tile t, and V(t) while it scores
+// tile t + 1: no conversion waits on the consumer, nor it on one.
+template <class C>
+__device__ __forceinline__ void producer_split(const CUtensorMap* tk,
+                                               const CUtensorMap* tv,
+                                               unsigned char* smem,
+                                               uint64_t* bars,
+                                               const Geo& geo) {
+  const int tid = threadIdx.x, n = geo.r.n;
+  uint64_t* raw = bars;                     // raw_k[STAGES], raw_v[STAGES]
+  uint64_t* kv = bars + 2 * C::STAGES;      // full_k, empty_k, full_v, ...
+  unsigned char* buf = smem + C::OFF_BUF;
+  // part 0: K, 1: V; slot s of the raw ring holds K at 2 s, V at 2 s + 1
+  auto issue = [&](int t, int part) {
+    const int s = t % C::STAGES;
+    uint64_t* bar = raw + part * C::STAGES + s;
+    mbar_expect_tx(bar, C::RAW);
+    tma_load_4d(smem + (2 * s + part) * C::RAW, part ? tv : tk, geo.col,
+                geo.kh, geo.r.lo + t * C::BK, geo.bi, bar);
+  };
+  auto stage = [&](int t, int part) {
+    const int s = t % C::STAGES;
+    const unsigned char* src = smem + (2 * s + part) * C::RAW;
+    mbar_wait(raw + part * C::STAGES + s, (t / C::STAGES) & 1);
+    mbar_wait(kv + 2 * part + 1, (t & 1) ^ 1);  // the consumers are done
+    if (part)
+      convert_v<C>(src, buf, tid);
+    else
+      convert_k<C>(src, buf, tid);
+    fence_proxy_async();
+    mbar_arrive(kv + 2 * part);
+    named_sync(1, 128);  // every thread has read this raw tile
+    if (tid == 0 && t + C::STAGES < n) issue(t + C::STAGES, part);
+  };
+  if (tid == 0)
+    for (int t = 0; t < min(C::STAGES, n); ++t) issue(t, 0), issue(t, 1);
+  if (n > 0) stage(0, 0);
+  for (int t = 0; t < n; ++t) {
+    if (t + 1 < n) stage(t + 1, 0);
+    stage(t, 1);
+  }
+}
+
 // S = Q K^T for one consumer warpgroup: 3xTF32 for f32, Q from registers
-// (qa[kk][plane][4]) or from shared memory (qaddr)
-template <class C, int NQA>
+// (qa[kk][plane][4]), from shared memory (qaddr), or (QHI) hi from
+// registers and lo from shared memory
+template <class C, int NQA, int NP>
 __device__ __forceinline__ void score(float (&s)[C::BK / 2],
-                                      const uint32_t (&qa)[NQA][C::PL][4],
+                                      const uint32_t (&qa)[NQA][NP][4],
                                       uint32_t qaddr, uint32_t kaddr) {
-  constexpr int NK = C::RAW / C::BK / C::ES / C::KSTEP;  // HD / KSTEP
+  constexpr int NK = C::W / C::KSTEP;
 #pragma unroll
   for (int kk = 0; kk < NK; ++kk) {
     const uint64_t kh = gmma_desc(kaddr + 2 * kk * C::LBO_K, C::LBO_K, C::SBO);
@@ -408,6 +543,13 @@ __device__ __forceinline__ void score(float (&s)[C::BK / 2],
       const uint64_t kl = kh + (C::KPLANE >> 4);
       if constexpr (C::QREG) {
         Wgmma_tf32_rs<C::BK>::run(s, qa[kk][1], kh, kk > 0);
+        Wgmma_tf32_rs<C::BK>::run(s, qa[kk][0], kl, 1);
+        Wgmma_tf32_rs<C::BK>::run(s, qa[kk][0], kh, 1);
+      } else if constexpr (C::QHI) {
+        const uint64_t ql =
+            gmma_desc(qaddr + 2 * kk * C::LBO_Q, C::LBO_Q, C::SBO) +
+            (C::QPLANE >> 4);
+        Wgmma_tf32_ss<C::BK>::run(s, ql, kh, kk > 0);
         Wgmma_tf32_rs<C::BK>::run(s, qa[kk][0], kl, 1);
         Wgmma_tf32_rs<C::BK>::run(s, qa[kk][0], kh, 1);
       } else {
@@ -428,6 +570,49 @@ __device__ __forceinline__ void score(float (&s)[C::BK / 2],
   }
 }
 
+// P, in S's accumulator fragment, as the 3xTF32 A fragments of P V:
+// [key group][hi, lo][A word]
+template <class C>
+__device__ __forceinline__ void p_fragments(const float (&s)[C::BK / 2],
+                                            uint32_t (&pa)[C::BK / 8][2][4]) {
+#pragma unroll
+  for (int j = 0; j < C::BK / 8; ++j) {
+    // A word i is row rr + 8 (i % 2), position c + 4 (i / 2), which holds
+    // key 2c + i / 2 of the group (the V^T permutation)
+    split_tf32(s[4 * j + 0], pa[j][0][0], pa[j][1][0]);
+    split_tf32(s[4 * j + 2], pa[j][0][1], pa[j][1][1]);
+    split_tf32(s[4 * j + 1], pa[j][0][2], pa[j][1][2]);
+    split_tf32(s[4 * j + 3], pa[j][0][3], pa[j][1][3]);
+  }
+}
+
+// O += P V in f32, V^T at vaddr: three tf32 products a key group, issued
+// and committed; the caller waits
+template <class C>
+__device__ __forceinline__ void issue_pv_f32(
+    float (&acc)[C::W / 2], const uint32_t (&pa)[C::BK / 8][2][4],
+    uint32_t vaddr) {
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < C::BK / 8; ++j) {
+    const uint64_t vh = gmma_desc(vaddr + 2 * j * C::LBO_V, C::LBO_V, C::SBO_V);
+    const uint64_t vl = vh + (C::VPLANE >> 4);
+    Wgmma_tf32_rs<C::W>::run(acc, pa[j][1], vh, 1);
+    Wgmma_tf32_rs<C::W>::run(acc, pa[j][0], vl, 1);
+    Wgmma_tf32_rs<C::W>::run(acc, pa[j][0], vh, 1);
+  }
+  wgmma_commit();
+}
+
+template <int J>
+__device__ __forceinline__ void fence_frags(uint32_t (&pa)[J][2][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    fence_regs(pa[j][0]);
+    fence_regs(pa[j][1]);
+  }
+}
+
 template <class C, typename T>
 __device__ __forceinline__ void consumer(const T* __restrict__ q,
                                          T* __restrict__ o,
@@ -436,10 +621,12 @@ __device__ __forceinline__ void consumer(const T* __restrict__ q,
                                          int h, int kind, int window,
                                          int q_offset, float scale) {
   if constexpr (C::NW == 2) setmaxnreg_inc<224>();
-  constexpr int HD = C::RAW / C::BK / C::ES;
+  constexpr int W = C::W;
   constexpr int BK = C::BK;
   uint64_t* full_cv = bars + C::STAGES;
   uint64_t* empty_cv = full_cv + C::NBUF;
+  uint64_t* kv = bars + 2 * C::STAGES;  // split: full_k, empty_k, full_v, ..
+  uint64_t* xfull = kv + 4;
   const int cw = threadIdx.x / 128 - 1;
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
   const int c = lane % 4;
@@ -449,12 +636,13 @@ __device__ __forceinline__ void consumer(const T* __restrict__ q,
   const int qpos0 = q_offset + row0 + rr, qpos1 = qpos0 + 8;
   const int qpos_first = q_offset + row0;
   const int qpos_last = q_offset + row0 + rows - 1;
-  const long q_stride = (long)h * HD;
-  const T* qb = q + ((long)geo.bi * sq * h + geo.head) * HD;
+  const long q_stride = (long)h * C::SPLIT * W;
+  const T* qb = q + ((long)geo.bi * sq * h + geo.head) * C::SPLIT * W +
+                geo.col;
 
   // Q as the A operand
-  constexpr int NQA = C::QREG ? HD / C::KSTEP : 1;
-  uint32_t qa[NQA][C::PL][4];
+  constexpr int NQA = C::QREG || C::QHI ? W / C::KSTEP : 1;
+  uint32_t qa[NQA][C::QREG ? C::PL : 1][4];
   uint32_t qaddr = 0;
   if constexpr (C::QREG) {
 #pragma unroll
@@ -476,7 +664,7 @@ __device__ __forceinline__ void consumer(const T* __restrict__ q,
       }
   } else {
     unsigned char* qs = smem + C::OFF_Q + cw * C::PL * C::QPLANE;
-    constexpr int CPR = HD / C::KC;
+    constexpr int CPR = W / C::KC;
 #pragma unroll 4
     for (int ch = t; ch < 64 * CPR; ch += 128) {
       const int r = ch / CPR, cc = ch % CPR;
@@ -500,71 +688,66 @@ __device__ __forceinline__ void consumer(const T* __restrict__ q,
     fence_proxy_async();
     named_sync(2 + cw, 128);
     qaddr = saddr(qs);
+    if constexpr (C::QHI) {  // the A fragments of the hi plane
+#pragma unroll
+      for (int kk = 0; kk < NQA; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = rr + 8 * (i % 2), col = 8 * kk + c + 4 * (i / 2);
+          qa[kk][0][i] = *reinterpret_cast<const uint32_t*>(
+              qs + (col / C::KC) * C::LBO_Q + (r / 8) * C::SBO +
+              (r % 8) * 16 + (col % C::KC) * 4);
+        }
+    }
   }
 
   const float sl2 = scale * LOG2E;
-  float acc[HD / 2];
+  float acc[W / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
-  // Two consumer groups take turns at S = Q K^T (named barriers 4 + cw):
-  // group 1 scores while group 0 runs its softmax, so the tensor cores
-  // are not left idle while both groups compute exponentials.  Every turn
-  // is taken and passed on, skipped tiles included; group 1 gives group 0
-  // the first turn and group 0 takes the last one back.
-  constexpr bool PINGPONG = C::NW == 2;
-  if (PINGPONG && cw == 1) named_arrive(4, 256);
-
-  for (int it = 0; it < geo.r.n; ++it) {
-    const int b = it % C::NBUF;
-    const int kt = geo.r.lo + it * BK;
-    mbar_wait(&full_cv[b], (it / C::NBUF) & 1);
-    if (PINGPONG) named_sync(4 + cw, 256);
-    if (rows <= 0 || (kind != BIDIR && kt > qpos_last)) {
-      if (PINGPONG) named_arrive(5 - cw, 256);
-      mbar_arrive(&empty_cv[b]);  // past this group's diagonal: adds 0
-      continue;
-    }
-    const uint32_t buf = saddr(smem + C::OFF_BUF + b * C::BUF);
-
-    float s[BK / 2];
-    wgmma_fence();
-    score<C>(s, qa, qaddr, buf);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    if (PINGPONG) named_arrive(5 - cw, 256);
-
-    // mask, scale into base 2, row max over the quad
+  // The online softmax of tile kt: mask, scale into base 2, row max over
+  // the quad, m and l updated; s becomes P (unnormalised), and alpha the
+  // factor by which O must shrink.
+  auto softmax = [&](float (&s)[BK / 2], int kt, float (&alpha)[2]) {
     const bool inside =
         kt + BK <= sk &&
         (kind == BIDIR ||
          (kt + BK - 1 <= qpos_first &&
           (kind != SWA || window <= 0 || kt > qpos_last - window)));
+    // (the test is hoisted out of the loops: left inside them, it made the
+    // f32 hd-256 instance 27 % slower on an H100, PERF.md)
     float mt[2] = {-INFINITY, -INFINITY};
+    if (inside) {  // no key of the tile is masked for any row
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
+        for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[4 * j + 2 * hh + e];
-          if (inside) {
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[4 * j + 2 * hh + e];
             x *= sl2;
-          } else {
+            mt[hh] = fmaxf(mt[hh], x);
+          }
+    } else {
+      const bool windowed = kind == SWA && window > 0;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[4 * j + 2 * hh + e];
             const int kpos = kt + 8 * j + 2 * c + e;
             const int qpos = hh ? qpos1 : qpos0;
-            bool ok = true;
-            if (kind != BIDIR) {
-              ok = kpos <= qpos;
-              if (kind == SWA && window > 0) ok = ok && kpos > qpos - window;
-            }
+            const bool ok =
+                kind == BIDIR ||
+                (kpos <= qpos && (!windowed || kpos > qpos - window));
             x = kpos >= sk ? -INFINITY : (ok ? x * sl2 : NEG_INF);
+            mt[hh] = fmaxf(mt[hh], x);
           }
-          mt[hh] = fmaxf(mt[hh], x);
-        }
-    float alpha[2];
+    }
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       mt[hh] = fmaxf(mt[hh], __shfl_xor_sync(0xffffffffu, mt[hh], 1));
@@ -586,65 +769,156 @@ __device__ __forceinline__ void consumer(const T* __restrict__ q,
         }
     l[0] = l[0] * alpha[0] + ls[0];
     l[1] = l[1] * alpha[1] + ls[1];
+  };
+  // O *= alpha, skipped when no row max of the warp moved
+  auto rescale = [&](const float (&alpha)[2]) {
     if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
+      for (int j = 0; j < W / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[4 * j + e] *= alpha[e / 2];
     }
+  };
 
-    // O += P V
-    const uint32_t vaddr = buf + C::OFF_V;
-    if constexpr (C::F32) {
-      uint32_t pa[BK / 8][2][4];  // [key group][hi, lo][A word]
+  if constexpr (C::SPLIT == 2) {
+    // One consumer warpgroup; the P V of tile it - 1 runs on the tensor
+    // cores while the warpgroup waits for the peer's partial S of tile it.
+    // The producer converts K(it + 1) once S(it) is done and V(it) once
+    // P V(it - 1) is.  Each wgmma is issued and waited for in one branch,
+    // and no register of a wgmma in flight is written: else ptxas
+    // serialises every wgmma of the kernel.
+    const int n = geo.r.n;
+    const uint32_t buf = saddr(smem + C::OFF_BUF);
+    const uint32_t peer_x = peer_addr(smem + C::OFF_X, geo.rank ^ 1) + 16 * t;
+    const uint32_t peer_bar = peer_addr(xfull, geo.rank ^ 1);
+    // hand this block's partial S of tile x to the peer: slot x % 2, which
+    // the peer read two tiles ago, before it sent the partial of tile x - 1
+    // that this block has received.  The peer's bytes may land before this
+    // block's expect_tx; the phase completes when both have.
+    auto push = [&](const float (&s)[BK / 2], int x) {
+      const int xb = x & 1;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+        st_async_v4(peer_x + xb * C::XSLOT + j * 128 * 16, s[4 * j],
+                    s[4 * j + 1], s[4 * j + 2], s[4 * j + 3],
+                    peer_bar + 8 * xb);
+      if (t == 0) mbar_expect_tx(&xfull[xb], C::XSLOT);
+    };
+    // S(x) = S_0 + S_1: add the peer's partial (f32 addition commutes, so
+    // both blocks get the same bits); its wait passes at once when the
+    // caller has already waited
+    auto pull = [&](float (&s)[BK / 2], int x) {
+      const int xb = x & 1;
+      mbar_wait(&xfull[xb], (x >> 1) & 1);
+      const float4* mine =
+          reinterpret_cast<const float4*>(smem + C::OFF_X + xb * C::XSLOT) +
+          t;
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
-        // A word i is row rr + 8 (i % 2), position c + 4 (i / 2), which
-        // holds key 2c + i / 2 of the group (the V^T permutation)
-        split_tf32(s[4 * j + 0], pa[j][0][0], pa[j][1][0]);
-        split_tf32(s[4 * j + 2], pa[j][0][1], pa[j][1][1]);
-        split_tf32(s[4 * j + 1], pa[j][0][2], pa[j][1][2]);
-        split_tf32(s[4 * j + 3], pa[j][0][3], pa[j][1][3]);
+        const float4 x4 = mine[j * 128];
+        s[4 * j] += x4.x;
+        s[4 * j + 1] += x4.y;
+        s[4 * j + 2] += x4.z;
+        s[4 * j + 3] += x4.w;
       }
+    };
+    uint32_t pa[BK / 8][2][4];  // P of the tile before, for its P V
+    for (int it = 0; it < n; ++it) {
+      float s[BK / 2];
+      mbar_wait(kv, it & 1);  // full_k: K(it)
       wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        const uint64_t vh =
-            gmma_desc(vaddr + 2 * j * C::LBO_V, C::LBO_V, C::SBO_V);
-        const uint64_t vl = vh + (C::VPLANE >> 4);
-        Wgmma_tf32_rs<HD>::run(acc, pa[j][1], vh, 1);
-        Wgmma_tf32_rs<HD>::run(acc, pa[j][0], vl, 1);
-        Wgmma_tf32_rs<HD>::run(acc, pa[j][0], vh, 1);
-      }
+      score<C>(s, qa, qaddr, buf);
       wgmma_commit();
       wgmma_wait<0>();
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        fence_regs(pa[j][0]);
-        fence_regs(pa[j][1]);
+      fence_regs(s);
+      mbar_arrive(kv + 1);  // empty_k: K(it) read
+      push(s, it);
+      if (it > 0) {
+        mbar_wait(kv + 2, (it - 1) & 1);  // full_v: V(it - 1)
+        issue_pv_f32<C>(acc, pa, buf + C::OFF_V);
+        mbar_wait(&xfull[it & 1], (it >> 1) & 1);  // the peer's S(it)
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_frags(pa);
+        mbar_arrive(kv + 3);  // empty_v: V(it - 1) read
       }
-    } else {
-      uint32_t pa[BK / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        Wgmma_bf16_rs<HD>::run(
-            acc, pa[kk],
-            gmma_desc(vaddr + 2 * kk * C::LBO_V, C::LBO_V, C::SBO_V), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+      pull(s, it);
+      float alpha[2];
+      softmax(s, geo.r.lo + it * BK, alpha);
+      rescale(alpha);
+      p_fragments<C>(s, pa);
     }
-    fence_regs(acc);
-    mbar_arrive(&empty_cv[b]);
+    if (n > 0) {  // the last tile's P V
+      mbar_wait(kv + 2, (n - 1) & 1);
+      issue_pv_f32<C>(acc, pa, buf + C::OFF_V);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_frags(pa);
+    }
+  } else {
+    // Two consumer groups take turns at S = Q K^T (named barriers 4 + cw):
+    // group 1 scores while group 0 runs its softmax, so the tensor cores
+    // are not left idle while both groups compute exponentials.  Every
+    // turn is taken and passed on, skipped tiles included; group 1 gives
+    // group 0 the first turn and group 0 takes the last one back.
+    constexpr bool PINGPONG = C::NW == 2;
+    if (PINGPONG && cw == 1) named_arrive(4, 256);
+
+    for (int it = 0; it < geo.r.n; ++it) {
+      const int b = it % C::NBUF;
+      const int kt = geo.r.lo + it * BK;
+      mbar_wait(&full_cv[b], (it / C::NBUF) & 1);
+      if (PINGPONG) named_sync(4 + cw, 256);
+      if (rows <= 0 || (kind != BIDIR && kt > qpos_last)) {
+        if (PINGPONG) named_arrive(5 - cw, 256);
+        mbar_arrive(&empty_cv[b]);  // past this group's diagonal: adds 0
+        continue;
+      }
+      const uint32_t buf = saddr(smem + C::OFF_BUF + b * C::BUF);
+
+      float s[BK / 2];
+      wgmma_fence();
+      score<C>(s, qa, qaddr, buf);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      if (PINGPONG) named_arrive(5 - cw, 256);
+
+      float alpha[2];
+      softmax(s, kt, alpha);
+      rescale(alpha);
+
+      // O += P V
+      const uint32_t vaddr = buf + C::OFF_V;
+      if constexpr (C::F32) {
+        uint32_t pa[BK / 8][2][4];
+        p_fragments<C>(s, pa);
+        issue_pv_f32<C>(acc, pa, vaddr);
+        wgmma_wait<0>();
+        fence_frags(pa);
+      } else {
+        uint32_t pa[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          Wgmma_bf16_rs<W>::run(
+              acc, pa[kk],
+              gmma_desc(vaddr + 2 * kk * C::LBO_V, C::LBO_V, C::SBO_V), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+      }
+      fence_regs(acc);
+      mbar_arrive(&empty_cv[b]);
+    }
+    if (PINGPONG && cw == 0) named_sync(4, 256);
   }
-  if (PINGPONG && cw == 0) named_sync(4, 256);
 
   // epilogue: the quad's partial sums, one division, 8-byte stores
 #pragma unroll
@@ -652,7 +926,7 @@ __device__ __forceinline__ void consumer(const T* __restrict__ q,
     l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
     l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
   }
-  T* ob = o + ((long)geo.bi * sq * h + geo.head) * HD;
+  T* ob = o + ((long)geo.bi * sq * h + geo.head) * C::SPLIT * W + geo.col;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = rr + 8 * hh;
@@ -660,7 +934,7 @@ __device__ __forceinline__ void consumer(const T* __restrict__ q,
     const float den = fmaxf(l[hh], 1e-30f);
     T* orow = ob + (row0 + r) * q_stride + 2 * c;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < W / 8; ++j) {
       const float x0 = acc[4 * j + 2 * hh] / den;
       const float x1 = acc[4 * j + 2 * hh + 1] / den;
       if constexpr (C::F32)
@@ -689,163 +963,55 @@ __global__ void __launch_bounds__(Cfg<T, HD, NWG>::NT, 1)
   // heaviest query tile first: late causal tiles see the most keys
   const int qt = kind == BIDIR ? blockIdx.y : gridDim.y - 1 - blockIdx.y;
   Geo geo;
-  geo.bi = blockIdx.x / h;
-  geo.head = blockIdx.x % h;
+  const int bh = blockIdx.x / C::SPLIT;  // a cluster's blocks share a head
+  geo.bi = bh / h;
+  geo.head = bh % h;
   geo.kh = geo.head / (h / kvh);
+  geo.rank = C::SPLIT == 2 ? cluster_rank() : 0;
+  geo.col = geo.rank * C::W;
   geo.q0 = qt * 64 * NWG;
   geo.r = key_tiles(q_offset + geo.q0,
                     q_offset + min(geo.q0 + 64 * NWG, sq) - 1, sk, kind,
                     window, C::BK);
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < C::STAGES; ++s) mbar_init(&bars[s], 1);
-    for (int b = 0; b < C::NBUF; ++b) {
-      mbar_init(&bars[C::STAGES + b], 128);
-      mbar_init(&bars[C::STAGES + C::NBUF + b], 128 * NWG);
+    if constexpr (C::SPLIT == 2) {
+      // raw_k, raw_v: one TMA each; full_k/v: the producer's threads;
+      // empty_k/v: the consumer's; xfull: this block's expect_tx, and the
+      // peer's bytes
+      for (int i = 0; i < 2 * C::STAGES; ++i) mbar_init(&bars[i], 1);
+      for (int i = 2 * C::STAGES; i < C::NBAR - 2; ++i)
+        mbar_init(&bars[i], 128);
+      for (int i = C::NBAR - 2; i < C::NBAR; ++i) mbar_init(&bars[i], 1);
+    } else {
+      for (int s = 0; s < C::STAGES; ++s) mbar_init(&bars[s], 1);
+      for (int b = 0; b < C::NBUF; ++b) {
+        mbar_init(&bars[C::STAGES + b], 128);
+        mbar_init(&bars[C::STAGES + C::NBUF + b], 128 * NWG);
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  if constexpr (C::SPLIT == 2) {
+    // the peer's barriers are initialised before either block arrives on
+    // them
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
 
-  if (threadIdx.x < 128)
-    producer<C>(&tk, &tv, smem, bars, geo);
-  else
+  if (threadIdx.x >= 128)
     consumer<C>(q, o, smem, bars, geo, sq, sk, h, kind, window, q_offset,
                 scale);
-}
-
-// ---------------------------------------------------------------------------
-// The FMA body (the first CUDA design), kept for f32 hd 256 only: f32
-// FMAs on the CUDA cores, fed from shared memory padded by one float a
-// row; one block per (batch * head, 64 queries).
-
-template <int HD> struct Tiles;
-template <> struct Tiles<256> {
-  static constexpr int BQ = 64, BK = 32, TPR = 8, NT = BQ * TPR;
-};
-
-template <int HD> constexpr size_t smem_bytes() {
-  using t = Tiles<HD>;
-  return sizeof(float) *
-         ((size_t)t::BQ * (HD + 1) + 2 * (size_t)t::BK * (HD + 1) +
-          (size_t)t::BQ * (t::BK + 1));
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(Tiles<HD>::NT)
-flash_fwd_fma(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-              int h, int kvh, int kind, int window, int q_offset,
-              float scale) {
-  constexpr int BQ = Tiles<HD>::BQ, BK = Tiles<HD>::BK, TPR = Tiles<HD>::TPR;
-  constexpr int NT = Tiles<HD>::NT;
-  constexpr int LD = HD + 1;   // padded row stride of Q/K/V tiles (floats)
-  constexpr int LDP = BK + 1;  // padded row stride of the P tile
-  constexpr int NS = BK / TPR; // scores per thread per tile
-  constexpr int NA = HD / TPR; // output dims per thread
-
-  extern __shared__ float smem[];
-  float* Qs = smem;           // BQ x LD
-  float* Ks = Qs + BQ * LD;   // BK x LD
-  float* Vs = Ks + BK * LD;   // BK x LD
-  float* Ps = Vs + BK * LD;   // BQ x LDP
-
-  const int bi = blockIdx.x / h;
-  const int head = blockIdx.x % h;
-  const int kh = head / (h / kvh);
-  const int q0 = blockIdx.y * BQ;
-  const int tid = threadIdx.x;
-  const int row = tid / TPR, sub = tid % TPR;
-
-  const long q_stride = (long)h * HD;    // between query positions
-  const long k_stride = (long)kvh * HD;  // between key positions
-  const T* qb = q + ((long)bi * sq * h + head) * HD;
-  const T* kb = k + ((long)bi * sk * kvh + kh) * HD;
-  const T* vb = v + ((long)bi * sk * kvh + kh) * HD;
-  T* ob = o + ((long)bi * sq * h + head) * HD;
-
-#pragma unroll 8
-  for (int i = 0; i < BQ * HD / NT; ++i) {
-    const int e = tid + i * NT, r = e / HD, d = e % HD;
-    Qs[r * LD + d] = (q0 + r < sq) ? to_f(qb[(q0 + r) * q_stride + d]) : 0.f;
-  }
-
-  const Range rg = key_tiles(q_offset + q0, q_offset + min(q0 + BQ, sq) - 1,
-                             sk, kind, window, BK);
-  const int qpos = q_offset + q0 + row;
-  float m = NEG_INF, l = 0.f;
-  float acc[NA];
-#pragma unroll
-  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
-
-  for (int kt = rg.lo; kt < rg.lo + rg.n * BK; kt += BK) {
-    __syncthreads();  // Q loaded; previous K/V/P tile consumed
-#pragma unroll 8
-    for (int i = 0; i < BK * HD / NT; ++i) {
-      const int e = tid + i * NT, r = e / HD, d = e % HD;
-      const bool in = kt + r < sk;
-      Ks[r * LD + d] = in ? to_f(kb[(kt + r) * k_stride + d]) : 0.f;
-      Vs[r * LD + d] = in ? to_f(vb[(kt + r) * k_stride + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[NS];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) s[n] = 0.f;
-    const float* qr = Qs + row * LD;
-    for (int d = 0; d < HD; ++d) {
-      const float qd = qr[d];
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-        s[n] = fmaf(qd, Ks[(sub + n * TPR) * LD + d], s[n]);
-    }
-    float mt = NEG_INF;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      const int kpos = kt + sub + n * TPR;
-      bool ok = true;
-      if (kind != BIDIR) {
-        ok = kpos <= qpos;
-        if (kind == SWA && window > 0) ok = ok && kpos > qpos - window;
-      }
-      s[n] = kpos >= sk ? -INFINITY : (ok ? s[n] * scale : NEG_INF);
-      mt = fmaxf(mt, s[n]);
-    }
-#pragma unroll
-    for (int off = TPR / 2; off > 0; off >>= 1)
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-    const float m_new = fmaxf(m, mt);
-    const float alpha = expf(m - m_new);
-    float ls = 0.f;
-    float* pr = Ps + row * LDP;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      const float p = expf(s[n] - m_new);
-      ls += p;
-      pr[sub + n * TPR] = p;
-    }
-#pragma unroll
-    for (int off = TPR / 2; off > 0; off >>= 1)
-      ls += __shfl_xor_sync(0xffffffffu, ls, off);
-    l = l * alpha + ls;
-    m = m_new;
-    __syncwarp();  // the row's P entries come from lanes of this warp
-
-#pragma unroll
-    for (int i = 0; i < NA; ++i) acc[i] *= alpha;
-    for (int j = 0; j < BK; ++j) {
-      const float p = pr[j];
-#pragma unroll
-      for (int i = 0; i < NA; ++i)
-        acc[i] = fmaf(p, Vs[j * LD + sub + i * TPR], acc[i]);
-    }
-  }
-
-  if (q0 + row < sq) {
-    const float den = fmaxf(l, 1e-30f);
-    T* orow = ob + (q0 + row) * q_stride;
-#pragma unroll
-    for (int i = 0; i < NA; ++i) orow[sub + i * TPR] = from_f<T>(acc[i] / den);
+  else if constexpr (C::SPLIT == 2)
+    producer_split<C>(&tk, &tv, smem, bars, geo);
+  else
+    producer<C>(&tk, &tv, smem, bars, geo);
+  if constexpr (C::SPLIT == 2) {
+    // neither block leaves while the peer may still address its memory
+    cluster_arrive();
+    cluster_wait();
   }
 }
 
@@ -859,23 +1025,6 @@ struct Args {
   float scale;
   cudaStream_t stream;
 };
-
-template <typename T, int HD>
-cudaError_t launch_fma(const Args& a) {
-  constexpr size_t smem = smem_bytes<HD>();
-  // raised once per instance: the attribute holds for every later launch
-  // (one card per process)
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_fma<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid(a.b * a.h, (a.sq + Tiles<HD>::BQ - 1) / Tiles<HD>::BQ);
-  flash_fwd_fma<T, HD><<<grid, Tiles<HD>::NT, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.sq, a.sk, a.h,
-      a.kvh, a.kind, a.window, a.q_offset, a.scale);
-  return cudaGetLastError();
-}
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
@@ -904,10 +1053,10 @@ EncodeTiled encode_tiled() {
 }
 
 // a (b, sk, kv, hd) K or V tensor as a 4-D map (hd, kv, sk, b); boxes of
-// one head's bk keys, unswizzled, rows past sk zero-filled
+// w dims of one head's bk keys, unswizzled, rows past sk zero-filled
 template <typename T>
 cudaError_t kv_map(CUtensorMap* map, const void* base, const Args& a, int hd,
-                   int bk) {
+                   int w, int bk) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t es = sizeof(T);
@@ -915,7 +1064,7 @@ cudaError_t kv_map(CUtensorMap* map, const void* base, const Args& a, int hd,
                               (cuuint64_t)a.sk, (cuuint64_t)a.b};
   const cuuint64_t strides[3] = {hd * es, a.kvh * hd * es,
                                  (cuuint64_t)a.sk * a.kvh * hd * es};
-  const cuuint32_t box[4] = {(cuuint32_t)hd, 1, (cuuint32_t)bk, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)w, 1, (cuuint32_t)bk, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map,
@@ -935,14 +1084,44 @@ cudaError_t launch_wgmma(const Args& a) {
       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return attr;
   CUtensorMap tk, tv;
-  cudaError_t err = kv_map<T>(&tk, a.k, a, HD, C::BK);
-  if (err == cudaSuccess) err = kv_map<T>(&tv, a.v, a, HD, C::BK);
+  cudaError_t err = kv_map<T>(&tk, a.k, a, HD, C::W, C::BK);
+  if (err == cudaSuccess) err = kv_map<T>(&tv, a.v, a, HD, C::W, C::BK);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.b * a.h, (a.sq + 64 * NWG - 1) / (64 * NWG));
-  flash_fwd_wgmma<T, HD, NWG><<<grid, C::NT, C::SMEM, a.stream>>>(
-      tk, tv, static_cast<const T*>(a.q), static_cast<T*>(a.o), a.sq, a.sk,
-      a.h, a.kvh, a.kind, a.window, a.q_offset, a.scale);
+  // a split head's blocks are neighbours in x, one cluster
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = C::SPLIT;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim =
+      dim3(a.b * a.h * C::SPLIT, (a.sq + 64 * NWG - 1) / (64 * NWG));
+  cfg.blockDim = dim3(C::NT);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = a.stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = C::SPLIT > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, flash_fwd_wgmma<T, HD, NWG>, tk, tv,
+                           static_cast<const T*>(a.q), static_cast<T*>(a.o),
+                           a.sq, a.sk, a.h, a.kvh, a.kind, a.window,
+                           a.q_offset, a.scale);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// Calls f(std::integral_constant<int, NWG>{}) for the instance that takes
+// a query tile of bq (64 or 128) for element type T and head size HD, or
+// returns cudaErrorInvalidValue: f32 at hd 128 and 256 take 64 only (their
+// Q planes fill shared memory).
+template <typename T, int HD, typename F>
+cudaError_t with_instance(int bq, F&& f) {
+  if constexpr (std::is_same<T, float>::value && HD >= 128) {
+    if (bq == 64) return f(std::integral_constant<int, 1>{});
+  } else {
+    if (bq == 64) return f(std::integral_constant<int, 1>{});
+    if (bq == 128) return f(std::integral_constant<int, 2>{});
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -966,14 +1145,24 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   return dispatch(dtype, hd, [&](auto* tag, auto hd_c) -> cudaError_t {
     using T = std::remove_pointer_t<decltype(tag)>;
     constexpr int HD = decltype(hd_c)::value;
-    constexpr bool F32 = std::is_same<T, float>::value;
-    if constexpr (F32 && HD == 256) {
-      return bq == 64 ? launch_fma<T, HD>(a) : cudaErrorInvalidValue;
-    } else if constexpr (F32 && HD == 128) {
-      return bq == 64 ? launch_wgmma<T, HD, 1>(a) : cudaErrorInvalidValue;
-    } else {
-      return bq == 128 ? launch_wgmma<T, HD, 2>(a)
-                       : launch_wgmma<T, HD, 1>(a);
-    }
+    return with_instance<T, HD>(bq, [&](auto nwg) -> cudaError_t {
+      return launch_wgmma<T, HD, decltype(nwg)::value>(a);
+    });
   });
+}
+
+// The dynamic shared memory, in bytes, of the instance that
+// flash_attention_fwd launches for (hd, dtype, bq), or -1 if none does:
+// for the build's logs.
+extern "C" int flash_attention_smem(int hd, int dtype, int bq) {
+  int bytes = -1;
+  dispatch(dtype, hd, [&](auto* tag, auto hd_c) -> cudaError_t {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    constexpr int HD = decltype(hd_c)::value;
+    return with_instance<T, HD>(bq, [&](auto nwg) -> cudaError_t {
+      bytes = Cfg<T, HD, decltype(nwg)::value>::SMEM;
+      return cudaSuccess;
+    });
+  });
+  return bytes;
 }

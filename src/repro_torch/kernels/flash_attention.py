@@ -3,13 +3,14 @@
 Counterpart of ``repro/kernels/flash_attention.py`` (the TPU kernel
 ``flash_attention_fwd``).  The kernel is ``csrc/flash_attention.cu``, written
 by hand for Hopper (sm_90a): wgmma on the tensor cores (bf16; 3xTF32 for
-f32) fed by a TMA ring; the source's header says what bounds it and how.
+f32) fed by a TMA ring, f32 at hd 256 split over a cluster of two blocks;
+the source's header says what bounds it and how.
 
 * :func:`flash_attention` — the wrapper.  For CPU tensors it runs the plain
   version; for CUDA tensors it launches the kernel or raises, never falls
   back.  ``launches`` counts its kernel launches.
-* :func:`query_tile` — queries per block, chosen per call from sq and
-  passed to the kernel.  The wrapper refuses tensors TMA cannot read
+* :func:`query_tile` — queries per block (per cluster at f32 hd 256),
+  chosen per call from sq and passed to the kernel.  The wrapper refuses tensors TMA cannot read
   (``check_aligned``: 16-byte bases and strides).
 * :func:`flash_attention_ref` — the plain PyTorch version: one masked
   softmax over all keys with f32 scores, the finite ``NEG_INF`` and the
@@ -80,7 +81,8 @@ def query_tile(sq: int, hd: int, dtype) -> int:
     """Queries per block: 128 (two consumer warpgroups of 64 rows) unless
     the call has at most 64 queries, where a second warpgroup would idle.
     f32 at hd 128 takes 64 only (its Q planes fill shared memory), as does
-    f32 at hd 256 (the FMA body, `flash_fwd_fma`)."""
+    f32 at hd 256, whose 64 queries go to a cluster of two blocks that
+    each hold half of the head dim."""
     if dtype == torch.float32 and hd >= 128:
         return 64
     return 128 if sq > 64 else 64
@@ -88,7 +90,8 @@ def query_tile(sq: int, hd: int, dtype) -> int:
 
 _ARGTYPES = {"flash_attention_fwd": [ctypes.c_void_p] * 4
              + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int,
-                                      ctypes.c_void_p]}
+                                      ctypes.c_void_p],
+             "flash_attention_smem": [ctypes.c_int] * 3}
 
 
 def _check(q, k, v, kind: str) -> None:

@@ -5,7 +5,10 @@ The CUDA kernel (``csrc/flash_attention.cu``) runs f32 attention as
 tf32(x - hi), rounded to nearest), an online softmax in base 2 with the
 scale folded into one multiply, and P V with the keys of each 8-key group
 permuted so that the tf32 accumulator fragment of S serves as the A
-fragment of P V.  Its schedule is :func:`tile_plan` below (queries per
+fragment of P V.  f32 at hd 256 splits the head dim over a cluster of two
+blocks: each forms its partial S over its 128 dims, the two partials are
+summed, and each block runs the shared softmax and its half of P V.  Its
+schedule is :func:`tile_plan` below (queries per
 block from ``kernels/flash_attention.py::query_tile``).  The kernel runs
 only on the card; here a plain PyTorch model of that arithmetic, driven by
 that schedule, with TF32 rounding emulated on the f32 bit pattern, is held
@@ -31,10 +34,18 @@ LOG2E = 1.4426950408889634
 PERM = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])
 
 
+def head_split(hd, dtype):
+    """Blocks a head's dims are split over (``Cfg::SPLIT``): two for f32 at
+    hd 256, whose Q and K/V planes do not fit one block's shared memory."""
+    return 2 if dtype == torch.float32 and hd == 256 else 1
+
+
 def key_tile(hd, dtype):
-    """Keys per tile (``Cfg::BK`` in the source): 32 where a tile of 64
-    would not fit shared memory (hd 256; f32 hd 128), else 64."""
-    return 32 if hd >= 256 or (dtype == torch.float32 and hd >= 128) else 64
+    """Keys per tile (``Cfg::BK`` in the source), from the dims a block
+    holds: 32 where a tile of 64 would not fit shared memory (256 dims;
+    f32 at 128, so also f32 hd 256 split in two), else 64."""
+    w = hd // head_split(hd, dtype)
+    return 32 if w >= 256 or (dtype == torch.float32 and w >= 128) else 64
 
 
 def key_tiles(qpos_first, qpos_last, sk, kind, window, bk):
@@ -54,8 +65,8 @@ def tile_plan(sq, sk, hd, dtype, *, kind="causal", window=0, q_offset=0):
     """The kernel's schedule: for each group of 64 query rows (one consumer
     warpgroup) its first row, its valid rows and the key tiles it
     multiplies: its block's tiles, less those past the group's own
-    diagonal.  (f32 at hd 256 runs the FMA body, 64 queries a block, so
-    its group is its block and skips nothing more.)"""
+    diagonal.  (With a split, the two blocks of a cluster share one group
+    of 64 queries and its tiles.)"""
     bq, bk = fa.query_tile(sq, hd, dtype), key_tile(hd, dtype)
     plan = []
     for q0 in range(0, sq, bq):
@@ -104,13 +115,18 @@ def masked_scores(s, qpos, kpos, sk, kind, window):
 
 
 def kernel_model(q, k, v, *, kind="causal", window=0, q_offset=0,
-                 dtype=torch.float32, product=mm3, permute=True):
+                 dtype=torch.float32, product=mm3, permute=True, split=None):
     """The kernel's algorithm in plain PyTorch: per 64-row group and per
     key tile of ``tile_plan``, S by ``product``, masked, scaled into base 2
     (scale * log2 e in f32), the online softmax with exp2, P V (keys of
     each 8-key group permuted for f32; P rounded to bf16 for bf16), and one
-    division by max(l, 1e-30)."""
+    division by max(l, 1e-30).  With a split (``head_split`` unless
+    ``split`` is given), S is the sum of the blocks' partial products over
+    their dims, taken in block order, and each block's P V fills its dims
+    of O."""
     b, sq, h, hd = q.shape
+    n_split = head_split(hd, dtype) if split is None else split
+    w = hd // n_split
     _, sk, kvh, _ = k.shape
     g = h // kvh
     plan, bk = tile_plan(sq, sk, hd, dtype, kind=kind, window=window,
@@ -135,8 +151,13 @@ def kernel_model(q, k, v, *, kind="causal", window=0, q_offset=0,
                     kt_ = kf[bi, kt:kt + bk, kh]
                     vt_ = vf[bi, kt:kt + bk, kh]
                     kpos = kt + torch.arange(bk)
-                    s = (product(qg, kt_) if dtype == torch.float32
-                         else qg @ kt_.T)
+                    if dtype == torch.float32:
+                        s = product(qg[:, :w], kt_[:, :w])
+                        for r in range(1, n_split):
+                            s = s + product(qg[:, r * w:(r + 1) * w],
+                                            kt_[:, r * w:(r + 1) * w])
+                    else:
+                        s = qg @ kt_.T
                     ok, past = masked_scores(s, qpos, kpos, sk, kind, window)
                     s = torch.where(ok, s * sl2, NEG_INF)
                     s = torch.where(past, -torch.inf, s)
@@ -150,7 +171,9 @@ def kernel_model(q, k, v, *, kind="causal", window=0, q_offset=0,
                             idx = (torch.arange(bk) // 8 * 8
                                    + PERM.repeat(bk // 8))
                             p, vt_ = p[:, idx], vt_[idx]
-                        pv = product(p, vt_.T.contiguous())
+                        pv = torch.cat([product(
+                            p, vt_[:, r * w:(r + 1) * w].T.contiguous())
+                            for r in range(n_split)], dim=1)
                     else:
                         pv = p.to(torch.bfloat16).float() @ vt_
                     acc = acc * alpha[:, None] + pv
@@ -231,6 +254,12 @@ MODEL_CASES = [
     (1, 100, 100, 4, 2, 64, "swa", 30, 0, "bfloat16"),
     (1, 200, 200, 6, 1, 128, "causal", 0, 0, "bfloat16"),
     (1, 70, 70, 2, 1, 256, "bidir", 0, 0, "bfloat16"),
+    # f32 hd 256, split over a cluster: ragged causal, bidir, a 64-query
+    # chunk past the window (recurrentgemma's, at a reduced h), g 10
+    (1, 130, 130, 2, 1, 256, "causal", 0, 0, "float32"),
+    (1, 100, 100, 2, 1, 256, "bidir", 0, 0, "float32"),
+    (1, 64, 4096, 2, 1, 256, "swa", 2048, 4032, "float32"),
+    (1, 96, 96, 10, 1, 256, "swa", 48, 0, "float32"),
 ]
 
 
@@ -246,6 +275,19 @@ def test_kernel_model_matches_jax(case):
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(ref, np.float32), rtol=tol,
                                atol=tol)
+
+
+def test_head_split_only_reorders_the_sums():
+    """The split's S is the 3xTF32 sum over hd 256 taken as two sums of 128
+    dims: against one block over all 256 it moves O by f32 rounding only,
+    far inside the 2e-5 limit."""
+    assert head_split(256, torch.float32) == 2
+    assert head_split(256, torch.bfloat16) == 1
+    assert head_split(128, torch.float32) == 1
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(1, 80, 80, 2, 1, 256, 51)
+    two = kernel_model(qt, kt, vt, kind="causal")
+    one = kernel_model(qt, kt, vt, kind="causal", split=1)
+    torch.testing.assert_close(two, one, rtol=2e-6, atol=2e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -385,6 +427,7 @@ PLAN_CASES = [
     (129, 257, 64, torch.float32, "causal", 0, 128),
     (64, 512, 64, torch.float32, "swa", 64, 448),
     (130, 130, 32, torch.float32, "swa", 0, 0),
+    (64, 4096, 256, torch.float32, "swa", 2048, 4032),
 ]
 
 
