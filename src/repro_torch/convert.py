@@ -63,8 +63,13 @@ def params_from_jax(tree_of_numpy, cfg: ModelConfig,
     by ``repro.models.transformer.init_params`` for the same config: for
     qwen2 ``embed (V, d)``, ``final_norm.scale``, ``unit.p0.{attn.{wq, wk,
     wv, wo, bq, bk, bv}, mlp.{w_gate, w_up, w_down}, norm1.scale,
-    norm2.scale}`` with the layer stack on axis 0, and an empty ``rest``.
-    Dtypes are kept.
+    norm2.scale}`` with the layer stack on axis 0, and an empty ``rest``;
+    an xLSTM block has ``mlstm.{wq, wk, wv, wi, bi, wf, bf, w_ogate,
+    w_out}`` or ``slstm.{w_in, b_in, r, w_out}``; whisper adds ``cross`` and
+    ``norm_cross`` (LayerNorms with ``bias``) to every decoder block and an
+    ``encoder`` with ``blocks`` stacked over its layers and a
+    ``final_norm``.  Checked leaf by leaf against ``init_params(None, cfg,
+    device="meta")``: a missing or extra leaf raises.  Dtypes are kept.
     """
     dev = resolve_device(device)
     expected = init_params(None, cfg, device="meta")
@@ -116,9 +121,12 @@ def cache_from_jax(cache_of_numpy, device="cuda") -> Dict[str, Any]:
     ``cache_of_numpy`` is ``jax.tree.map(np.asarray, cache)`` for a cache
     of ``repro.models.decode`` (``init_cache``, ``init_slot_cache`` or
     ``init_paged_cache``, filled or not): ``unit``/``rest`` layer dicts of
-    ``k``/``v`` (and, paged, the int32 block table ``bt``) and ``pos``.  The
-    port keeps that layout, so this is a checked copy: dtypes are kept and
-    each leaf is a private tensor on ``device``.
+    ``k``/``v`` (and, paged, the int32 block table ``bt``), of an RG-LRU's
+    ``h``/``conv``, an mLSTM's ``c``/``n``/``m`` or an sLSTM's
+    ``c``/``n``/``h``/``m`` (the reference's ``MLSTMState``/``SLSTMState``
+    fields, stored as dict leaves), whisper's ``ck``/``cv``, and ``pos``.
+    The port keeps that layout, so this is a checked copy: dtypes are kept
+    and each leaf is a private tensor on ``device``.
     """
     dev = resolve_device(device)
     if not isinstance(cache_of_numpy, dict) or set(cache_of_numpy) != {

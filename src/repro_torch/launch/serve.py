@@ -18,10 +18,20 @@ fixed-slot ``SlotRunner``):
         --device cpu --streaming
 
 Counterpart of ``repro/launch/serve.py``.  ``--arch`` takes any config of
-the families the port serves (dense, moe, hybrid: qwen2-0.5b,
-mixtral-8x22b, recurrentgemma-2b, ...).  Weights are random, made from
-``--seed``; prefill and decode attention run on the Hopper kernels
-(``repro_torch/kernels``).  Without CUDA it raises unless ``--device cpu``
+the registry but the paper CNN (qwen2-0.5b, mixtral-8x22b,
+recurrentgemma-2b, xlstm-125m, whisper-base, qwen2-vl-2b, ...):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
+        --batch 8 --prompt-len 128 --gen 16 --temperature 0
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
+        --reduced --device cpu
+
+Weights are random, made from ``--seed``; so are whisper's encoder frames
+(the stubbed front end's output, from a stream of their own), which
+``prefill_cross_kv`` runs through the encoder before the prompt's prefill.
+Prefill and decode attention run on the Hopper kernels
+(``repro_torch/kernels``); the xLSTM blocks are plain PyTorch, as the
+reference's are plain jnp.  Without CUDA it raises unless ``--device cpu``
 is given.  Paged serving has no flags here, as in the reference: it is
 reached through the ``SlotRunner``/``Scheduler`` API (``repro_torch.serve``).
 """
@@ -36,15 +46,18 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
-from repro_torch.models.decode import decode_step, init_cache, prefill_cache
+from repro_torch.models.decode import (decode_step, init_cache, prefill_cache,
+                                       prefill_cross_kv)
 from repro_torch.models.transformer import RunCtx, init_params
 
 
 def generators(seed: int, device) -> List[torch.Generator]:
-    """One generator per use (init / prompts / sampling): a shared stream
-    would correlate the sampling chain with the init."""
+    """One generator per use (init / prompts / sampling / audio frames): a
+    shared stream would correlate the sampling chain with the init.  Each
+    is a ``SeedSequence.spawn`` child, which keeps its index, so adding the
+    fourth left the first three's draws as they were."""
     seeds = [int(s.generate_state(1)[0])
-             for s in np.random.SeedSequence(seed).spawn(3)]
+             for s in np.random.SeedSequence(seed).spawn(4)]
     return [torch.Generator(device=device).manual_seed(s) for s in seeds]
 
 
@@ -58,11 +71,20 @@ def setup(args, cfg=None):
         if args.reduced:
             cfg = cfg.reduced()
     ctx = RunCtx(device=str(dev))
-    g_init, g_prompt, g_sample = generators(args.seed, dev)
+    g_init, g_prompt, g_sample, _ = generators(args.seed, dev)
     params = init_params(g_init, cfg, device=dev)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=g_prompt, device=dev)
     return cfg, ctx, params, prompts, g_sample
+
+
+def audio_feats(args, cfg, device) -> torch.Tensor:
+    """Whisper's encoder input for ``args.batch`` rows, (b, encoder_seq_len,
+    d_model) f32 normal draws from the fourth generator: the stubbed conv
+    front end's output, as the reference draws it from its own key."""
+    g_audio = generators(args.seed, device)[3]
+    return torch.randn((args.batch, cfg.encoder_seq_len, cfg.d_model),
+                       generator=g_audio, device=device)
 
 
 def _sync(dev: torch.device) -> None:
@@ -74,14 +96,24 @@ def run_offline(args, cfg=None) -> Dict[str, Any]:
     """Prefill a random batch of prompts, then decode ``args.gen`` tokens.
 
     Returns the prompts, the generated tokens (b, gen), the logits after
-    prefill and after the last step, and the wall times of both phases.
-    ``cfg``: as in :func:`setup`.
+    prefill and after the last step, and the wall times of both phases
+    (for whisper also the encoder frames and the wall time of
+    ``prefill_cross_kv``, which runs before the prefill and outside its
+    time, as in the reference).  ``cfg``: as in :func:`setup`.
     """
     cfg, ctx, params, prompts, g_sample = setup(args, cfg)
     dev = prompts.device
     pattern = cfg.pattern_for_long_context() if args.long_context else None
     cache_len = args.prompt_len + args.gen
     cache = init_cache(cfg, args.batch, cache_len, ctx, pattern=pattern)
+    feats, t_encode = None, 0.0
+    if cfg.encoder_layers:
+        feats = audio_feats(args, cfg, dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        cache = prefill_cross_kv(params, feats, cfg, ctx, cache)
+        _sync(dev)
+        t_encode = time.perf_counter() - t0
 
     _sync(dev)
     t0 = time.perf_counter()
@@ -105,14 +137,16 @@ def run_offline(args, cfg=None) -> Dict[str, Any]:
     _sync(dev)
     t_decode = time.perf_counter() - t0
     tokens = torch.stack(out, dim=1)
-    print(f"arch={cfg.name} batch={args.batch} prefill={t_prefill:.3f}s "
+    enc = f"encode={t_encode:.3f}s " if cfg.encoder_layers else ""
+    print(f"arch={cfg.name} batch={args.batch} {enc}prefill={t_prefill:.3f}s "
           f"decode={t_decode:.3f}s "
           f"({args.batch * args.gen / t_decode:.1f} tok/s) "
           f"cache_len={cache_len} device={dev}")
     print("sample:", tokens[0, :16].tolist())
     return {"cfg": cfg, "prompts": prompts, "tokens": tokens,
             "prefill_logits": prefill_logits, "last_logits": logits,
-            "prefill_s": t_prefill, "decode_s": t_decode}
+            "prefill_s": t_prefill, "decode_s": t_decode,
+            "audio_feats": feats, "encode_s": t_encode}
 
 
 def run_streaming(args) -> Dict[str, Any]:

@@ -1,17 +1,23 @@
 """Serving: KV caches (fixed-slot and paged), slot ops, fused and chunked
 prefill, decode step.
 
-Counterpart of ``repro/models/decode.py`` for attention and RG-LRU stacks
-with dense or MoE FFNs (cross-attention and the xLSTM states come with a
-later slice).
+Counterpart of ``repro/models/decode.py``, for every family the port
+serves.
 
 Cache kinds per layer, sized from the *effective* pattern:
 
 * full attention — (b, S, kv, hd) K/V, slot = pos
 * SWA / local    — ring buffer (b, W, kv, hd), slot = pos % W; RoPE is
   applied at write time, so the ring's storage order is harmless
-* RG-LRU         — ``h`` (b, r) f32 and ``conv`` (b, 3, r) taps: O(1) in
-  the sequence length, and slot-resident in the paged layout too
+* RG-LRU         — ``h`` (b, r) f32 and ``conv`` (b, 3, r) taps
+* mLSTM          — ``c`` (b, nh, hd, hd), ``n`` (b, nh, hd), ``m`` (b, nh)
+* sLSTM          — ``c``, ``n``, ``h``, ``m`` (b, nh, hd)
+* whisper's decoder blocks add ``ck``/``cv`` (b, encoder_seq_len, kv, hd):
+  the cross-attention K/V over the encoder's output, filled by
+  :func:`prefill_cross_kv`
+
+The recurrent and xLSTM states (all f32) are O(1) in the sequence length;
+they and ``ck``/``cv`` stay slot-resident in the paged layout too.
 
 The cache is the reference's dict: ``unit`` (each leaf stacked over the
 unit's repeats), ``rest`` and ``pos`` — a scalar for an offline batch that
@@ -50,15 +56,22 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ATTN_FULL, RECURRENT, ModelConfig
+from repro_torch.configs.base import (ATTN_FULL, MLSTM, RECURRENT, SLSTM,
+                                      ModelConfig)
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.attention import (chunked_attention, decode_attention,
                                           paged_decode_attention)
 from repro_torch.models.transformer import (_MASK, ATTN_KINDS, RunCtx,
                                             _effective, _lm_head, _norm,
-                                            check_supported, embed, ffn_fwd,
-                                            layer_sigs, stack_plan, take)
+                                            check_supported, cross_query,
+                                            embed, encode, ffn_fwd,
+                                            layer_sigs, proj_cross, rope_for,
+                                            rotate, stack_plan, take)
+
+# the fused prefill's mLSTM chunk (the reference's prefill_cache)
+FUSED_MLSTM_CHUNK = 256
 
 
 def _attn_cache_shape(cfg: ModelConfig, batch: int, cache_len: int,
@@ -68,18 +81,39 @@ def _attn_cache_shape(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def init_layer_cache(cfg: ModelConfig, batch: int, cache_len: int, kind: str,
-                     window: int, dtype, device, reps: int = 0):
+                     window: int, dtype, device, reps: int = 0,
+                     cross: bool = False):
     """Zero state for one layer (``reps`` > 0: stacked over them): K/V for
-    an attention layer, ``h`` (f32) and ``conv`` for an RG-LRU layer."""
+    an attention layer, the f32 states of an RG-LRU (``conv`` in ``dtype``),
+    mLSTM or sLSTM layer; ``cross`` adds the (zero) cross K/V ``ck``/``cv``.
+    The stabilisers ``m`` start at zero, as the reference's caches do."""
     lead = (reps,) if reps else ()
+    f32 = dict(dtype=torch.float32, device=device)
     if kind == RECURRENT:
         h, conv = rglru_lib.state_shapes(cfg, batch)
-        return {"h": torch.zeros(lead + h, dtype=torch.float32,
-                                 device=device),
-                "conv": torch.zeros(lead + conv, dtype=dtype, device=device)}
-    sh = lead + _attn_cache_shape(cfg, batch, cache_len, kind, window)
-    return {"k": torch.zeros(sh, dtype=dtype, device=device),
-            "v": torch.zeros(sh, dtype=dtype, device=device)}
+        c = {"h": torch.zeros(lead + h, **f32),
+             "conv": torch.zeros(lead + conv, dtype=dtype, device=device)}
+    elif kind == MLSTM:
+        c = {name: torch.zeros(lead + sh, **f32) for name, sh in zip(
+            ("c", "n", "m"), xlstm_lib.mlstm_state_shapes(cfg, batch))}
+    elif kind == SLSTM:
+        sh = lead + xlstm_lib.slstm_state_shape(cfg, batch)
+        c = {name: torch.zeros(sh, **f32) for name in ("c", "n", "h", "m")}
+    else:
+        sh = lead + _attn_cache_shape(cfg, batch, cache_len, kind, window)
+        c = {"k": torch.zeros(sh, dtype=dtype, device=device),
+             "v": torch.zeros(sh, dtype=dtype, device=device)}
+    if cross:
+        c.update(_cross_cache(cfg, batch, dtype, device, lead))
+    return c
+
+
+def _cross_cache(cfg: ModelConfig, batch: int, dtype, device, lead=()):
+    """Zero ``ck``/``cv`` (lead + (b, encoder_seq_len, kv, hd))."""
+    sh = lead + (batch, cfg.encoder_seq_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+    return {leaf: torch.zeros(sh, dtype=dtype, device=device)
+            for leaf in ("ck", "cv")}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, ctx: RunCtx,
@@ -89,16 +123,19 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, ctx: RunCtx,
     check_supported(cfg, pattern)
     dev = resolve_device(ctx.device)
     u, reps, rem = stack_plan(layer_sigs(cfg))
+    cross = cfg.encoder_layers > 0
     cache: Dict[str, Any] = {"unit": {}, "rest": {}}
     for j in range(u):
         kind, window = _effective(cfg, pattern, j)
         cache["unit"][f"p{j}"] = init_layer_cache(
-            cfg, batch, cache_len, kind, window, ctx.param_dtype, dev, reps)
+            cfg, batch, cache_len, kind, window, ctx.param_dtype, dev, reps,
+            cross)
     for i in range(rem):
         li = u * reps + i
         kind, window = _effective(cfg, pattern, li)
         cache["rest"][f"l{li}"] = init_layer_cache(
-            cfg, batch, cache_len, kind, window, ctx.param_dtype, dev)
+            cfg, batch, cache_len, kind, window, ctx.param_dtype, dev,
+            cross=cross)
     cache["pos"] = torch.zeros((), dtype=torch.int32, device=dev)
     return cache
 
@@ -168,6 +205,13 @@ def _copy_slot(dst, src, slot: int, src_slot: int, stacked: bool):
             t[:, slot] = src[leaf][:, src_slot]
         else:
             t[slot] = src[leaf][src_slot]
+
+
+def _resident(cl):
+    """The slot-resident leaves of a layer: all but a paged layer's pools
+    and block table."""
+    return {k: t for k, t in cl.items() if k not in ("k", "v", "bt")
+            or "bt" not in cl}
 
 
 def _zero_slot(dst, slot: int, stacked: bool):
@@ -258,8 +302,9 @@ def init_paged_cache(cfg: ModelConfig, max_batch: int, cache_len: int,
     Each attention layer holds ``k``/``v`` pools (num_pages + max_batch, pg,
     kv, hd) (stacked over the unit's repeats) and ``bt`` (max_batch, ncols)
     int32 mapping its logical pages to pool rows, every entry at first the
-    slot's own scratch row ``num_pages + slot``; an RG-LRU layer keeps its
-    O(1) state slot-resident, as in :func:`init_slot_cache`; ``pos`` is a
+    slot's own scratch row ``num_pages + slot``; recurrent and xLSTM states
+    and whisper's cross K/V stay slot-resident, as in
+    :func:`init_slot_cache`; ``pos`` is a
     (max_batch,) int32 vector.  Claim slots with :func:`paged_insert`
     (pages from a :class:`~repro_torch.models.paging.PagePool`), release
     them with :func:`paged_evict`.
@@ -270,10 +315,15 @@ def init_paged_cache(cfg: ModelConfig, max_batch: int, cache_len: int,
     scratch = torch.arange(num_pages, num_pages + max_batch,
                            dtype=torch.int32, device=dev)
 
+    cross = cfg.encoder_layers > 0
+
     def layer(kind, window, reps=0):
         if kind not in ATTN_KINDS:
             return init_layer_cache(cfg, max_batch, cache_len, kind, window,
-                                    ctx.param_dtype, dev, reps)
+                                    ctx.param_dtype, dev, reps, cross)
+        lead = (reps,) if reps else ()
+        cl = (_cross_cache(cfg, max_batch, ctx.param_dtype, dev, lead)
+              if cross else {})
         _, S, kv, hd = _attn_cache_shape(cfg, 1, cache_len, kind, window)
         pg, ncols = _layer_page_geometry(S, page_size)
         pool = (num_pages + max_batch, pg, kv, hd)
@@ -281,9 +331,10 @@ def init_paged_cache(cfg: ModelConfig, max_batch: int, cache_len: int,
         if reps:
             pool = (reps,) + pool
             bt = bt.expand(reps, max_batch, ncols)
-        return {"k": torch.zeros(pool, dtype=ctx.param_dtype, device=dev),
-                "v": torch.zeros(pool, dtype=ctx.param_dtype, device=dev),
-                "bt": bt.contiguous()}
+        cl.update(k=torch.zeros(pool, dtype=ctx.param_dtype, device=dev),
+                  v=torch.zeros(pool, dtype=ctx.param_dtype, device=dev),
+                  bt=bt.contiguous())
+        return cl
 
     u, reps, rem = stack_plan(layer_sigs(cfg))
     cache: Dict[str, Any] = {"unit": {}, "rest": {}}
@@ -312,14 +363,15 @@ def paged_insert(cache, slot: int, src, pages: Sequence[int],
     the request's own pages are written, so no two writes hit one row (the
     unassigned columns all map to the one scratch row, and lie past every
     position the request reaches, masked by its kv_len).  Slot-resident
-    (RG-LRU) leaves are copied as :func:`slot_insert` copies them.
+    leaves (recurrent and xLSTM states, cross K/V) are copied as
+    :func:`slot_insert` copies them.
     """
     max_batch = cache["pos"].shape[0]
     pages = [int(p) for p in pages]
     dev = cache["pos"].device
     for part, name, dst, stacked in _layers_of(cache):
+        _copy_slot(_resident(dst), src[part][name], slot, src_slot, stacked)
         if "bt" not in dst:
-            _copy_slot(dst, src[part][name], slot, src_slot, stacked)
             continue
         bt = dst["bt"]
         ncols = bt.shape[-1]
@@ -350,15 +402,15 @@ def paged_insert(cache, slot: int, src, pages: Sequence[int],
 
 def paged_evict(cache, slot: int):
     """Release ``slot``: point its table row back at the slot's scratch row,
-    zero its slot-resident (RG-LRU) state and reset its length.  Pool pages
+    zero its slot-resident leaves and reset its length.  Pool pages
     are never touched: once the host has freed them they may belong to
     another request.  Their old content needs no cleanup (reads are
     kv_len-masked, ``paged_insert`` writes every page it hands a new
     request)."""
     max_batch = cache["pos"].shape[0]
     for _, _, dst, stacked in _layers_of(cache):
+        _zero_slot(_resident(dst), slot, stacked)
         if "bt" not in dst:
-            _zero_slot(dst, slot, stacked)
             continue
         scr = dst["k"].shape[-4] - max_batch + slot
         if stacked:
@@ -398,6 +450,31 @@ def gather_prefix_kv(cache, pages: Sequence[int], n_tokens: int):
 
 
 # ---------------------------------------------------------------------------
+# whisper's cross K/V
+
+
+def prefill_cross_kv(params, audio_feats, cfg: ModelConfig, ctx: RunCtx,
+                     cache):
+    """Run whisper's encoder over ``audio_feats`` (b, encoder_seq_len,
+    d_model) and write every decoder block's cross K/V (its own ``wk``/
+    ``wv`` of the encoder's output) into the cache's ``ck``/``cv``, in
+    place; returns the cache.  The encoder attends on
+    ``ctx.prefill_backend`` (``flash_attention`` on the card, bidir), without
+    autograd: this is the serving path."""
+    with torch.no_grad():
+        enc_out = encode(params, audio_feats, cfg, ctx,
+                         backend=ctx.prefill_backend)
+        for part, name, cl, stacked in _layers_of(cache):
+            bp = params[part][name]
+            for r in range(cl["ck"].shape[0] if stacked else 1):
+                ck, cv = proj_cross(take(bp, r) if stacked else bp, enc_out,
+                                    cfg)
+                (cl["ck"][r] if stacked else cl["ck"]).copy_(ck)
+                (cl["cv"][r] if stacked else cl["cv"]).copy_(cv)
+    return cache
+
+
+# ---------------------------------------------------------------------------
 # decode
 
 
@@ -427,22 +504,43 @@ def _step_index(pos, S: int, pg: int, b: int):
 
 
 def _block_decode(bp, x, cl, cfg: ModelConfig, ctx: RunCtx, sig, rope,
-                  index):
+                  index, cross_len):
     """One block for one token per slot; writes the layer's new state into
-    ``cl`` in place.  ``rope``: (cos, sin) at the step's positions;
-    ``index``: ``_step_index`` for an attention cache's geometry (None for
-    an RG-LRU layer)."""
+    ``cl`` in place.  ``rope``: (cos, sin) at the step's positions (None,
+    None without RoPE); ``index``: ``_step_index`` for an attention cache's
+    geometry (None for a recurrent or xLSTM layer); ``cross_len``: the
+    (b,) int32 kv_len of the cross K/V (every encoder frame)."""
     kind, ffn = sig
     h = _norm(bp["norm1"], x, cfg)
     if kind == RECURRENT:
         y, hh, conv = rglru_lib.rglru_decode_step(bp["rglru"], h, cl["h"],
                                                   cl["conv"])
-        cl["h"].copy_(hh)
-        cl["conv"].copy_(conv)
-        x = x + y
+        _store(cl, h=hh, conv=conv)
+    elif kind == MLSTM:
+        y, st = xlstm_lib.mlstm_decode_step(
+            bp["mlstm"], h, cfg, xlstm_lib.MLSTMState(cl["c"], cl["n"],
+                                                      cl["m"]))
+        _store(cl, **st._asdict())
+    elif kind == SLSTM:
+        y, st = xlstm_lib.slstm_decode_step(
+            bp["slstm"], h, cfg, xlstm_lib.SLSTMState(cl["c"], cl["n"],
+                                                      cl["h"], cl["m"]))
+        _store(cl, **st._asdict())
     else:
-        x = x + _attention_decode(bp["attn"], h, cl, cfg, ctx, rope, index)
+        y = _attention_decode(bp["attn"], h, cl, cfg, ctx, rope, index)
+    x = x + y
+    if "ck" in cl:
+        hc = _norm(bp["norm_cross"], x, cfg)
+        o = decode_attention(cross_query(bp["cross"], hc, cfg), cl["ck"],
+                             cl["cv"], cross_len, backend=ctx.decode_backend)
+        x = x + L.out_proj(bp["cross"], o)
     return ffn_fwd(bp, x, cfg, ffn)[0]
+
+
+def _store(cl, **state):
+    """Write a layer's new recurrent state into its cache, in place."""
+    for leaf, t in state.items():
+        cl[leaf].copy_(t)
 
 
 def _attention_decode(p, h, cl, cfg: ModelConfig, ctx: RunCtx, rope, index):
@@ -450,9 +548,7 @@ def _attention_decode(p, h, cl, cfg: ModelConfig, ctx: RunCtx, rope, index):
     writing the token's K/V into it."""
     slot, kv_len, rows = index
     q, k, v = L.qkv_proj(p, h, cfg)
-    cos, sin = rope
-    q = L.apply_rotary(q, cos, sin)
-    k = L.apply_rotary(k, cos, sin)
+    q, k = rotate(q, k, rope)
     if "bt" in cl:
         # paged: this token goes to offset r % pg of pool row bt[slot, r // pg]
         # (a freed slot writes to its own scratch row); attention then reads
@@ -502,18 +598,25 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, ctx: RunCtx,
 
     ``cache["pos"]`` scalar: lockstep batch (all rows the same age).
     ``cache["pos"]`` (b,): per-slot lengths, one step for a mixed-age batch.
+    Positions enter as RoPE, or as whisper's sinusoidal embedding (qwen2-vl
+    serves on 1-D RoPE, as the reference's decode does).
     """
     pattern = tuple(pattern) if pattern is not None else cfg.pattern
     pos = cache["pos"]
-    x = embed(params, tokens, cfg, ctx)
-    rope = L.rope_angles(pos[:, None] if pos.ndim == 1 else pos[None],
-                         cfg.resolved_head_dim, cfg.rope_theta)
+    b = tokens.shape[0]
+    at = pos[:, None] if pos.ndim == 1 else pos[None]     # (b, 1) | (1,)
+    x = embed(params, tokens, cfg, ctx, positions=at)
+    rope = rope_for(cfg, at)
+    cross_len = (torch.full((b,), cfg.encoder_seq_len, dtype=torch.int32,
+                            device=pos.device)
+                 if cfg.encoder_layers else None)
     index = {None: None}
     for bp, cl, sig, _, _ in _layers(params, cache, cfg, pattern):
-        geom = _layer_len(cl) if sig[0] != RECURRENT else None
+        geom = _layer_len(cl) if sig[0] in ATTN_KINDS else None
         if geom not in index:
-            index[geom] = _step_index(pos, *geom, tokens.shape[0])
-        x = _block_decode(bp, x, cl, cfg, ctx, sig, rope, index[geom])
+            index[geom] = _step_index(pos, *geom, b)
+        x = _block_decode(bp, x, cl, cfg, ctx, sig, rope, index[geom],
+                          cross_len)
     logits = _head(params, x[:, 0], cfg)
     cache["pos"] = pos + 1
     return logits, cache
@@ -526,18 +629,24 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, ctx: RunCtx,
 class ChunkedPrefill:
     """Interleavable prefill: the prompt advances in scheduler-sized chunks.
 
-    Construct with a *fresh* cache (``pos`` all zero); once every chunk has
-    been issued, ``finish()`` returns ``(last-position logits (b, V) f32,
-    the cache with pos advanced)``.  The work happens over repeated
-    ``step(n_tokens)`` calls, so a scheduler can slip decode steps between
-    chunks; :func:`prefill_cache` is the one-chunk case.  Chunk
-    ``[lo, hi)`` embeds at absolute positions (RoPE from ``lo``), appends
-    its K/V to each layer's contiguous carry and attends against the whole
-    prefix with ``chunked_attention(q_offset=lo,
+    Construct with a *fresh* cache (``pos`` all zero; whisper's cross K/V
+    already filled by :func:`prefill_cross_kv`, or left zero, as the slot
+    runner leaves it); once every chunk has been issued, ``finish()``
+    returns ``(last-position logits (b, V) f32, the cache with pos
+    advanced)``.  The work happens over repeated ``step(n_tokens)`` calls,
+    so a scheduler can slip decode steps between chunks;
+    :func:`prefill_cache` is the one-chunk case.  Chunk ``[lo, hi)`` embeds
+    at absolute positions (RoPE, or whisper's sinusoidal positions, from
+    ``lo``), appends its K/V to each attention layer's contiguous carry and
+    attends against the whole prefix with ``chunked_attention(q_offset=lo,
     backend=ctx.prefill_backend)`` (``flash_attention`` on the card).  SWA
     layers keep the carry contiguous too (attention over the in-flight K/V
     is exact; the ring only constrains what later decode steps can see).
-    An RG-LRU layer carries its ``h`` and conv taps from chunk to chunk.
+    RG-LRU, mLSTM and sLSTM layers carry their states from chunk to chunk;
+    an mLSTM layer runs each step as chunks of ``mlstm_chunk`` (None: the
+    step's own length, as the reference's ``ChunkedPrefill``; either way
+    the step's length where the chunk does not divide it).  Whisper's
+    blocks attend the cross K/V bidirectionally after their self-attention.
     The last chunk writes each layer's state into the cache as it goes,
     folding SWA layers into their ring, so the one-chunk case does the
     fused prefill's work in its order.  A MoE layer routes each chunk in
@@ -555,7 +664,8 @@ class ChunkedPrefill:
     def __init__(self, params, tokens, cache, cfg: ModelConfig, ctx: RunCtx,
                  pattern: Optional[Sequence[str]] = None,
                  start_token: int = 0,
-                 prefix_kv: Optional[List[Any]] = None):
+                 prefix_kv: Optional[List[Any]] = None,
+                 mlstm_chunk: Optional[int] = None):
         pattern = tuple(pattern) if pattern is not None else cfg.pattern
         check_supported(cfg, pattern)
         self.params, self.cfg, self.ctx = params, cfg, ctx
@@ -566,6 +676,7 @@ class ChunkedPrefill:
             raise ValueError(
                 f"start_token {start_token} outside [0, {self.total})")
         self.done_tokens = self.start_token
+        self.mlstm_chunk = mlstm_chunk
         self._cache = cache
         self._layers = list(_layers(params, cache, cfg, pattern))
         self._carry: List[Optional[Dict[str, Any]]] = [None] * len(
@@ -592,9 +703,9 @@ class ChunkedPrefill:
         hi = min(lo + int(n_tokens), self.total)
         if hi <= lo:
             return 0
-        x = embed(self.params, self.tokens[:, lo:hi], cfg, ctx)
-        rope = L.rope_angles(torch.arange(lo, hi, device=x.device),
-                             cfg.resolved_head_dim, cfg.rope_theta)
+        at = torch.arange(lo, hi, device=self.tokens.device)
+        x = embed(self.params, self.tokens[:, lo:hi], cfg, ctx, positions=at)
+        rope = rope_for(cfg, at)
         last = hi == self.total
         for li, (bp, cl, sig, kind, window) in enumerate(self._layers):
             x = self._block(bp, x, li, cl, sig, kind, window, rope, lo, last)
@@ -607,31 +718,48 @@ class ChunkedPrefill:
         layer's state into ``cl`` in place and drops its carry."""
         cfg = self.cfg
         h = _norm(bp["norm1"], x, cfg)
-        if sig[0] == RECURRENT:
-            x = x + self._recurrent(bp["rglru"], h, li, cl, last)
-        else:
+        if sig[0] in ATTN_KINDS:
             x = x + self._attention(bp["attn"], h, li, cl, kind, window,
                                     rope, lo, last)
+        else:
+            x = x + self._recurrent(bp, sig[0], h, li, cl, last)
+        if "ck" in cl:
+            hc = _norm(bp["norm_cross"], x, cfg)
+            q = cross_query(bp["cross"], hc, cfg)
+            o = chunked_attention(q, cl["ck"], cl["cv"], kind="bidir",
+                                  backend=self.ctx.prefill_backend)
+            x = x + L.out_proj(bp["cross"], o)
         return ffn_fwd(bp, x, cfg, sig[1])[0]
 
-    def _recurrent(self, p, h, li, cl, last):
+    def _recurrent(self, bp, kind, h, li, cl, last):
+        """An RG-LRU, mLSTM or sLSTM layer from its carried state."""
         st = self._carry[li]
-        y, (hh, conv) = rglru_lib.rglru_block(
-            p, h, h0=None if st is None else st["h"],
-            conv0=None if st is None else st["conv"], return_state=True)
+        if kind == RECURRENT:
+            y, (hh, conv) = rglru_lib.rglru_block(
+                bp["rglru"], h, h0=None if st is None else st["h"],
+                conv0=None if st is None else st["conv"], return_state=True)
+            new = {"h": hh, "conv": conv}
+        elif kind == MLSTM:
+            n = h.shape[1]
+            chunk = min(self.mlstm_chunk or n, n)
+            if n % chunk:
+                chunk = n
+            y, new = xlstm_lib.mlstm_chunked(bp["mlstm"], h, self.cfg,
+                                             state=st, chunk=chunk,
+                                             return_state=True)
+        else:
+            y, new = xlstm_lib.slstm_block(bp["slstm"], h, self.cfg,
+                                           state=st, return_state=True)
         if last:
             self._carry[li] = None
-            cl["h"].copy_(hh)
-            cl["conv"].copy_(conv)
+            _store(cl, **(new if isinstance(new, dict) else new._asdict()))
         else:
-            self._carry[li] = {"h": hh, "conv": conv}
+            self._carry[li] = new
         return y
 
     def _attention(self, p, h, li, cl, kind, window, rope, lo, last):
         q, k, v = L.qkv_proj(p, h, self.cfg)
-        cos, sin = rope
-        q = L.apply_rotary(q, cos, sin)
-        k = L.apply_rotary(k, cos, sin)
+        q, k = rotate(q, k, rope)
         st = self._carry[li]
         if st is not None:
             k = torch.cat([st["k"], k], dim=1)
@@ -672,10 +800,14 @@ def prefill_cache(params, tokens, cache, cfg: ModelConfig, ctx: RunCtx,
                   pattern: Optional[Sequence[str]] = None):
     """Fused prefill: one forward pass over the prompt fills the cache.
 
-    tokens (b, s) against a *fresh* cache (``pos`` all zero).  Returns
-    (last-position logits (b, V) f32, the cache with ``pos`` advanced by s):
-    a :class:`ChunkedPrefill` run as one chunk.
+    tokens (b, s) against a *fresh* cache (``pos`` all zero; whisper's cross
+    K/V filled by :func:`prefill_cross_kv`).  Returns (last-position logits
+    (b, V) f32, the cache with ``pos`` advanced by s): a
+    :class:`ChunkedPrefill` run as one chunk, its mLSTM layers in chunks of
+    ``FUSED_MLSTM_CHUNK`` (the whole prompt where 256 does not divide it),
+    as the reference's fused prefill runs them.
     """
-    job = ChunkedPrefill(params, tokens, cache, cfg, ctx, pattern=pattern)
+    job = ChunkedPrefill(params, tokens, cache, cfg, ctx, pattern=pattern,
+                         mlstm_chunk=FUSED_MLSTM_CHUNK)
     job.step(job.total)
     return job.finish()

@@ -1,6 +1,7 @@
-"""Core layers: norms, rotary embeddings, projections, gated MLP.
+"""Core layers: norms, rotary embeddings (RoPE / M-RoPE), projections, gated
+MLP.
 
-Counterpart of ``repro/models/layers.py`` for the serving slice.  Params are
+Counterpart of ``repro/models/layers.py``.  Params are
 plain dicts of tensors with the reference's names and layouts (``(d_in,
 d_out)`` weights), so converted reference params drop straight in.  Init
 functions take an explicit :class:`torch.Generator`; the big projections stay
@@ -64,6 +65,26 @@ def rope_angles(positions, head_dim: int, theta: float):
     freq = float(theta) ** (-torch.arange(0, half, dtype=torch.float32,
                                           device=positions.device) / half)
     ang = positions[..., None].float() * freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_angles(positions_3d, head_dim: int, sections, theta: float):
+    """Qwen2-VL's multimodal RoPE: positions_3d (3, b, s), the temporal,
+    height and width streams -> cos/sin (b, s, head_dim//2).  The frequency
+    slots are split into ``sections`` (summing to head_dim//2); each section
+    takes its angle from its own stream."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"{half}")
+    freq = float(theta) ** (-torch.arange(0, half, dtype=torch.float32,
+                                          device=positions_3d.device) / half)
+    ang = positions_3d[..., None].float() * freq          # (3, b, s, half)
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=ang.device),
+        torch.tensor(list(sections), device=ang.device))  # (half,)
+    one_hot = F.one_hot(sec_id, 3).float()                # (half, 3)
+    ang = torch.einsum("pbsh,hp->bsh", ang, one_hot)
     return torch.cos(ang), torch.sin(ang)
 
 

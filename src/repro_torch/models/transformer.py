@@ -3,18 +3,25 @@
 Counterpart of ``repro/models/transformer.py``.  Params keep the reference's
 pytree layout as nested dicts of tensors: ``embed``, ``final_norm``, an
 optional ``lm_head``, ``unit`` (the repeating unit of the stack plan, each
-leaf stacked over its repeats on axis 0) and ``rest`` (remainder layers).
-Where the reference scans over the stacked unit, the port walks it with a
-Python loop.
+leaf stacked over its repeats on axis 0), ``rest`` (remainder layers) and,
+for an encoder-decoder, ``encoder`` (``blocks`` stacked over its layers and
+its ``final_norm``).  Where the reference scans over a stack, the port walks
+it with a Python loop.
 
-The port covers the ``dense`` family (qwen2, qwen1.5, internlm2,
-mistral-large: attention blocks with dense FFNs), the ``moe`` family
-(mixtral, llama4: MoE FFNs from ``models/moe.py``, with llama4's shared
-experts and interleaved ``dense_alt`` FFNs) and the ``hybrid`` family
-(recurrentgemma: RG-LRU blocks from ``models/rglru.py`` beside local
-attention, and the gemma embedding scale).  Every other family or block
-kind raises ``NotImplementedError`` naming the ROADMAP item that will port
-it.  The training forward (:func:`forward_hidden`, :func:`lm_loss`) is
+The port covers every family and block kind of the reference: ``dense``
+(qwen2, qwen1.5, internlm2, mistral-large), ``moe`` (mixtral, llama4: MoE
+FFNs from ``models/moe.py``, llama4's shared experts and ``dense_alt``
+FFNs), ``hybrid`` (recurrentgemma: RG-LRU blocks from ``models/rglru.py``
+beside local attention, the gemma embedding scale), ``ssm`` (xLSTM: mLSTM
+and sLSTM blocks from ``models/xlstm.py``, which carry no FFN), ``audio``
+(whisper: a bidirectional encoder over stubbed frame embeddings, LayerNorms
+with a bias, sinusoidal positions and no RoPE, and a cross-attention in
+every decoder block) and ``vlm`` (qwen2-vl: M-RoPE over three position
+streams and patch embeddings in place of the first tokens, on the training
+forward; serving takes 1-D RoPE, as the reference's).
+:func:`check_supported` refuses a family or block kind the reference does
+not have.
+The training forward (:func:`forward_hidden`, :func:`lm_loss`) is
 differentiated by autograd; its attention is the plain version, as the
 reference's training path takes its jax attention, because the attention
 kernels have no backward.
@@ -33,11 +40,12 @@ from repro_torch.configs.base import (ATTN_FULL, ATTN_LOCAL, ATTN_SWA, MLSTM,
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.attention import chunked_attention
 
 ATTN_KINDS = (ATTN_FULL, ATTN_SWA, ATTN_LOCAL)
-FAMILIES = ("dense", "moe", "hybrid")
-BLOCK_KINDS = ATTN_KINDS + (RECURRENT,)
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
+BLOCK_KINDS = ATTN_KINDS + (RECURRENT, MLSTM, SLSTM)
 
 # ---------------------------------------------------------------------------
 # run context
@@ -99,24 +107,19 @@ def stack_plan(sigs: Sequence[Tuple[str, str]]) -> Tuple[int, int, int]:
     return n, 1, 0
 
 
-_NOT_PORTED = ("ROADMAP.md, 'Modules to port': the serving model zoo "
-               "(xLSTM, whisper and VLM blocks)")
-
-
 def check_supported(cfg: ModelConfig,
                     pattern: Optional[Sequence[str]] = None) -> None:
-    """Raise ``NotImplementedError`` unless the port serves ``cfg``."""
+    """Raise ``ValueError`` unless ``cfg`` (under ``pattern``) is a family
+    and every block kind one of the reference's transformer stacks has."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"({_NOT_PORTED})")
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a "
+                         f"transformer stack (one of {FAMILIES})")
     kinds = set(pattern if pattern is not None else cfg.pattern)
     kinds.update(kind for kind, _ in layer_sigs(cfg))
-    for kind in kinds:
+    for kind in sorted(kinds):
         if kind not in BLOCK_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} is not ported yet "
-                f"({_NOT_PORTED})")
+            raise ValueError(f"{cfg.name}: block kind {kind!r} is not one "
+                             f"of {BLOCK_KINDS}")
 
 
 # ---------------------------------------------------------------------------
@@ -124,6 +127,13 @@ def check_supported(cfg: ModelConfig,
 
 
 def _init_norm(cfg: ModelConfig, dtype, device):
+    """RMSNorm ``scale`` (zeros: the norm multiplies by 1 + scale); the
+    audio family's LayerNorm has ``scale`` ones and a ``bias``."""
+    if cfg.family == "audio":
+        return {"scale": torch.ones((cfg.d_model,), dtype=dtype,
+                                    device=device),
+                "bias": torch.zeros((cfg.d_model,), dtype=dtype,
+                                    device=device)}
     return {"scale": torch.zeros((cfg.d_model,), dtype=dtype, device=device)}
 
 
@@ -134,14 +144,22 @@ def _norm(p, x, cfg: ModelConfig):
 
 
 def init_block(gen, cfg: ModelConfig, sig: Tuple[str, str], dtype,
-               device) -> Dict[str, Any]:
-    """One block of signature ``sig`` = (kind, ffn kind)."""
+               device, cross_attn: bool = False) -> Dict[str, Any]:
+    """One block of signature ``sig`` = (kind, ffn kind); ``cross_attn``
+    adds whisper's cross-attention (``cross``, ``norm_cross``)."""
     kind, ffn = sig
     p: Dict[str, Any] = {"norm1": _init_norm(cfg, dtype, device)}
     if kind == RECURRENT:
         p["rglru"] = rglru_lib.init_rglru(gen, cfg, dtype, device)
+    elif kind == MLSTM:
+        p["mlstm"] = xlstm_lib.init_mlstm(gen, cfg, dtype, device)
+    elif kind == SLSTM:
+        p["slstm"] = xlstm_lib.init_slstm(gen, cfg, dtype, device)
     else:
         p["attn"] = L.init_attention(gen, cfg, dtype, device)
+    if cross_attn:
+        p["cross"] = L.init_attention(gen, cfg, dtype, device)
+        p["norm_cross"] = _init_norm(cfg, dtype, device)
     if ffn != "none":
         p["norm2"] = _init_norm(cfg, dtype, device)
         if ffn == "moe":
@@ -163,13 +181,51 @@ def ffn_fwd(p, x, cfg: ModelConfig, ffn: str):
     return x + L.mlp(p["mlp"], h), None
 
 
-def embed(params, tokens, cfg: ModelConfig, ctx: "RunCtx"):
+def sinusoidal(positions, d: int):
+    """Whisper's absolute positions: positions (...) -> (..., d) f32, the
+    sines of ``d // 2`` frequencies, then their cosines."""
+    half = d // 2
+    freq = 10000.0 ** (-torch.arange(half, dtype=torch.float32,
+                                     device=positions.device) / half)
+    ang = positions.float()[..., None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def embed(params, tokens, cfg: ModelConfig, ctx: "RunCtx", positions=None):
     """Token embeddings in the compute dtype; the hybrid family scales them
-    by sqrt(d_model), as gemma does."""
+    by sqrt(d_model), as gemma does, and the audio family adds the
+    sinusoidal positions of ``positions`` (broadcast against (b, s))."""
     x = params["embed"][tokens].to(ctx.compute_dtype)
     if cfg.family == "hybrid":
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if cfg.family == "audio":
+        if positions is None:
+            raise ValueError(f"{cfg.name}: the audio family's embedding "
+                             "needs positions")
+        x = x + sinusoidal(positions, cfg.d_model).to(x.dtype)
     return x
+
+
+def rope_for(cfg: ModelConfig, positions, mrope_positions=None):
+    """(cos, sin) of the stack's rotary embedding at ``positions``, M-RoPE's
+    at ``mrope_positions`` where the config uses it and they are given, or
+    (None, None) for the audio family, which has none."""
+    if cfg.family == "audio":
+        return None, None
+    hd = cfg.resolved_head_dim
+    if cfg.use_mrope and mrope_positions is not None:
+        return L.mrope_angles(mrope_positions, hd, cfg.mrope_sections,
+                              cfg.rope_theta)
+    return L.rope_angles(positions, hd, cfg.rope_theta)
+
+
+def rotate(q, k, rope):
+    """q and k under (cos, sin) ``rope``; unchanged where it is (None,
+    None)."""
+    cos, sin = rope
+    if cos is None:
+        return q, k
+    return L.apply_rotary(q, cos, sin), L.apply_rotary(k, cos, sin)
 
 
 def _effective(cfg: ModelConfig, pattern, li):
@@ -229,6 +285,7 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
     dev = resolve_device(device)
     sigs = layer_sigs(cfg)
     u, reps, rem = stack_plan(sigs)
+    cross = cfg.encoder_layers > 0
     params: Dict[str, Any] = {
         "embed": L.embed_init(gen, cfg.padded_vocab_size, cfg.d_model, dtype,
                               dev),
@@ -239,40 +296,86 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
                                          cfg.padded_vocab_size, dtype, dev)
     params["unit"] = {
         f"p{j}": _init_stacked(
-            lambda: init_block(gen, cfg, sigs[j], dtype, dev), reps)
+            lambda: init_block(gen, cfg, sigs[j], dtype, dev, cross), reps)
         for j in range(u)}
     params["rest"] = {
         f"l{u * reps + i}": init_block(gen, cfg, sigs[u * reps + i], dtype,
-                                       dev)
+                                       dev, cross)
         for i in range(rem)}
+    if cross:
+        params["encoder"] = {
+            "blocks": _init_stacked(
+                lambda: init_block(gen, cfg, ENCODER_SIG, dtype, dev),
+                cfg.encoder_layers),
+            "final_norm": _init_norm(cfg, dtype, dev)}
     return params
 
 
 # ---------------------------------------------------------------------------
 # forward (train)
 
-_MASK = {ATTN_FULL: "causal", ATTN_SWA: "swa", ATTN_LOCAL: "swa"}
+_MASK = {ATTN_FULL: "causal", ATTN_SWA: "swa", ATTN_LOCAL: "swa",
+         "bidir": "bidir"}
+ENCODER_SIG = (ATTN_FULL, "dense")
 
 
-def _attention_fwd(p, x, cfg: ModelConfig, eff_kind: str, window: int, rope):
-    cos, sin = rope
+def _attention_fwd(p, x, cfg: ModelConfig, eff_kind: str, window: int, rope,
+                   backend: str):
     q, k, v = L.qkv_proj(p, x, cfg)
-    q = L.apply_rotary(q, cos, sin)
-    k = L.apply_rotary(k, cos, sin)
+    q, k = rotate(q, k, rope)
     o = chunked_attention(q, k, v, kind=_MASK[eff_kind], window=window,
-                          backend="torch")
+                          backend=backend)
     return L.out_proj(p, o)
 
 
+def cross_query(p, x, cfg: ModelConfig):
+    """The cross-attention's queries (b, s, h, hd): ``qkv_proj``'s q alone
+    (the reference projects k and v from ``x`` too, and drops them)."""
+    b, s, _ = x.shape
+    q = torch.matmul(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+    return q.reshape(b, s, cfg.num_heads, cfg.resolved_head_dim)
+
+
+def cross_attention(p, x, ck, cv, cfg: ModelConfig, backend: str):
+    """Whisper's cross-attention: queries from ``x``, keys and values the
+    encoder's (ck, cv) (b, enc_s, kv, hd), no mask."""
+    o = chunked_attention(cross_query(p, x, cfg), ck, cv, kind="bidir",
+                          backend=backend)
+    return L.out_proj(p, o)
+
+
+def proj_cross(bp, enc_out, cfg: ModelConfig):
+    """One decoder block's cross K/V (b, enc_s, kv, hd) from the encoder's
+    output, by its own ``wk``/``wv`` (no bias, as the reference)."""
+    b, s, _ = enc_out.shape
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return (torch.matmul(enc_out, bp["cross"]["wk"]).reshape(b, s, kv, hd),
+            torch.matmul(enc_out, bp["cross"]["wv"]).reshape(b, s, kv, hd))
+
+
 def block_fwd(p, x, cfg: ModelConfig, sig: Tuple[str, str], eff_kind: str,
-              window: int, rope):
-    """One block, training path. x (b, s, d) -> (x, aux loss f32)."""
+              window: int, rope, enc_out=None, backend: str = "torch"):
+    """One block, training path. x (b, s, d) -> (x, aux loss f32).
+    ``enc_out``: the encoder's output, for a block with cross-attention;
+    ``backend``: the attention's (the plain version unless serving)."""
     kind, ffn = sig
     h = _norm(p["norm1"], x, cfg)
     if kind == RECURRENT:
         x = x + rglru_lib.rglru_block(p["rglru"], h)
+    elif kind == MLSTM:
+        x = x + xlstm_lib.mlstm_chunked(p["mlstm"], h, cfg,
+                                        chunk=min(256, h.shape[1]))
+    elif kind == SLSTM:
+        x = x + xlstm_lib.slstm_block(p["slstm"], h, cfg)
     else:
-        x = x + _attention_fwd(p["attn"], h, cfg, eff_kind, window, rope)
+        x = x + _attention_fwd(p["attn"], h, cfg, eff_kind, window, rope,
+                               backend)
+    if enc_out is not None:
+        hc = _norm(p["norm_cross"], x, cfg)
+        x = x + cross_attention(p["cross"], hc, *proj_cross(p, enc_out, cfg),
+                                cfg, backend)
     x, aux = ffn_fwd(p, x, cfg, ffn)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -288,28 +391,67 @@ def _unbind(tree: Dict[str, Any], reps: int) -> List[Dict[str, Any]]:
     return [{k: v[r] for k, v in per_leaf.items()} for r in range(reps)]
 
 
+def encode(params, feats, cfg: ModelConfig, ctx: RunCtx,
+           backend: str = "torch"):
+    """Whisper's encoder: feats (b, enc_s, d_model), the stubbed conv
+    front end's output -> (b, enc_s, d_model) after its final norm.  Its
+    blocks attend bidirectionally on ``backend``: the plain version on the
+    training forward, ``ctx.prefill_backend`` when serving
+    (``decode.prefill_cross_kv``).  ``ctx.remat`` checkpoints each layer
+    where autograd is on."""
+    x = feats.to(ctx.compute_dtype)
+    pos = torch.arange(x.shape[1], device=x.device)
+    x = x + sinusoidal(pos, cfg.d_model).to(x.dtype)[None]
+    remat = ctx.remat and torch.is_grad_enabled()
+
+    def body(x, bp):
+        return block_fwd(bp, x, cfg, ENCODER_SIG, "bidir", 0, (None, None),
+                         backend=backend)[0]
+
+    enc = params["encoder"]
+    for bp in _unbind(enc["blocks"], cfg.encoder_layers):
+        x = (checkpoint(body, x, bp, use_reentrant=False) if remat
+             else body(x, bp))
+    return _norm(enc["final_norm"], x, cfg)
+
+
 def forward_hidden(params, tokens, cfg: ModelConfig, ctx: RunCtx,
-                   pattern: Optional[Sequence[str]] = None, positions=None):
+                   pattern: Optional[Sequence[str]] = None,
+                   mrope_positions=None, patch_embeds=None, audio_feats=None,
+                   positions=None):
     """tokens (b, s) -> (hidden (b, s, d) after the final norm, aux loss).
 
-    The aux loss is the sum over MoE layers of their load-balance losses (0
-    without MoE layers).  ``ctx.remat`` checkpoints each repeat of the stack
-    unit, as the reference's ``jax.checkpoint(unit_body)``.
+    ``patch_embeds`` (b, np, d) take the place of the first np token
+    embeddings and ``mrope_positions`` (3, b, s) drive M-RoPE (qwen2-vl);
+    ``audio_feats`` (b, enc_s, d) feed the encoder (whisper, which needs
+    them).  The aux loss is the sum over MoE layers of their load-balance
+    losses (0 without MoE layers).  ``ctx.remat`` checkpoints each repeat of
+    the stack unit, as the reference's ``jax.checkpoint(unit_body)``.
     """
     check_supported(cfg, pattern)
     pattern = tuple(pattern) if pattern is not None else cfg.pattern
     sigs = layer_sigs(cfg)
     u, reps, rem = stack_plan(sigs)
-    x = embed(params, tokens, cfg, ctx)
-    if positions is None:
-        positions = torch.arange(tokens.shape[1], device=x.device)
-    rope = L.rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    s = tokens.shape[1]
+    seq = torch.arange(s, device=tokens.device)
+    x = embed(params, tokens, cfg, ctx, positions=seq)
+    if patch_embeds is not None:
+        npk = patch_embeds.shape[1]
+        x = torch.cat([patch_embeds.to(x.dtype), x[:, npk:]], dim=1)
+    rope = rope_for(cfg, seq if positions is None else positions,
+                    mrope_positions)
+    enc_out = None
+    if cfg.encoder_layers:
+        if audio_feats is None:
+            raise ValueError(f"{cfg.name}: the encoder needs audio_feats")
+        # each decoder block projects its own cross K/V from this output
+        enc_out = encode(params, audio_feats, cfg, ctx)
 
     def unit_body(x, aux, unit_p):
         for j in range(u):
             kind, window = _effective(cfg, pattern, j)  # periodic: li % u == j
             x, a = block_fwd(unit_p[f"p{j}"], x, cfg, sigs[j], kind, window,
-                             rope)
+                             rope, enc_out)
             aux = aux + a
         return x, aux
 
@@ -321,7 +463,7 @@ def forward_hidden(params, tokens, cfg: ModelConfig, ctx: RunCtx,
         li = u * reps + i
         kind, window = _effective(cfg, pattern, li)
         x, a = block_fwd(params["rest"][f"l{li}"], x, cfg, sigs[li], kind,
-                         window, rope)
+                         window, rope, enc_out)
         aux = aux + a
     x = _norm(params["final_norm"], x, cfg)
     return x, aux

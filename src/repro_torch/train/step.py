@@ -16,7 +16,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import RunCtx, forward_hidden, lm_loss
 
 MOE_AUX_WEIGHT = 0.01
-_NOT_PORTED = ("audio_feats", "patch_embeds", "mrope_positions")
+# batch inputs passed through to forward_hidden (whisper, qwen2-vl)
+EXTRA_INPUTS = ("audio_feats", "patch_embeds", "mrope_positions")
 
 
 def make_loss_fn(cfg: ModelConfig, ctx: RunCtx, sum_form: bool = False):
@@ -27,12 +28,8 @@ def make_loss_fn(cfg: ModelConfig, ctx: RunCtx, sum_form: bool = False):
     accumulate by addition without renormalisation.
     """
     def loss_fn(params, batch: Dict[str, Any]):
-        extra = sorted(set(batch) & set(_NOT_PORTED))
-        if extra:
-            raise NotImplementedError(
-                f"batch inputs {extra} belong to families the port does not "
-                "cover yet (ROADMAP.md, 'Modules to port')")
-        h, aux = forward_hidden(params, batch["tokens"], cfg, ctx)
+        extras = {k: batch[k] for k in EXTRA_INPUTS if k in batch}
+        h, aux = forward_hidden(params, batch["tokens"], cfg, ctx, **extras)
         mask = batch.get("loss_mask")
         w = batch.get("sample_weights")   # (b,) ScaDLES rate weights, sum=1
         if w is not None:

@@ -23,6 +23,7 @@ from repro.models import init_params as jax_init_params  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import decode as tdec  # noqa: E402
 from repro_torch.models import (RunCtx, decode_step, init_cache,  # noqa: E402
                                 init_params, init_slot_cache, prefill_cache,
                                 slot_evict, slot_insert)
@@ -190,9 +191,36 @@ def test_params_from_jax_keeps_bf16():
 
 @pytest.mark.parametrize("arch", ["whisper-base", "xlstm-125m",
                                   "qwen2-vl-2b"])
-def test_unported_families_raise(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cache(cfg, 1, 8, TCTX)
+def test_new_families_build_the_reference_trees(arch):
+    """``init_params`` and ``init_cache`` (fixed and paged) build the
+    reference's trees for the xLSTM, audio and VLM families: every leaf's
+    name, shape and dtype (whisper's ``encoder`` and cross leaves, the
+    mLSTM/sLSTM params and f32 states)."""
+    def spec(tree, strip=""):
+        return jax.tree.map(lambda a: (tuple(a.shape),
+                                       str(a.dtype).replace(strip, "")), tree)
+
+    jcfg = jax_get_config(arch).reduced()
+    tcfg = get_config(arch).reduced()
+    jparams = jax.eval_shape(lambda k: jax_init_params(k, jcfg),
+                             jax.random.PRNGKey(0))
+    assert spec(jparams) == spec(init_params(None, tcfg, device="meta"),
+                                 "torch.")
+    assert (spec(jdec.init_cache(jcfg, 2, 24, JCTX, as_spec=True))
+            == spec(init_cache(tcfg, 2, 24, TCTX), "torch."))
+    jpaged = jdec.init_paged_cache(jcfg, 3, 32, JCTX, page_size=8,
+                                   num_pages=6)
+    tpaged = tdec.init_paged_cache(tcfg, 3, 32, TCTX, page_size=8,
+                                   num_pages=6)
+    assert spec(jpaged) == spec(tpaged, "torch.")
+    # params_from_jax takes that tree and refuses one leaf more or less
+    tree = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), jparams)
+    params_from_jax(tree, tcfg, device="cpu")
+    block = tree["unit"]["p0"]
+    block["extra"] = np.zeros((1,), np.float32)
+    with pytest.raises(ValueError, match="extra"):
+        params_from_jax(tree, tcfg, device="cpu")
+    del block["extra"]
+    block.pop(sorted(k for k in block if k.startswith("norm"))[0])
+    with pytest.raises(ValueError, match="keys"):
+        params_from_jax(tree, tcfg, device="cpu")

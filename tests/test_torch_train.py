@@ -10,6 +10,7 @@ and both DDP programs, one step each, against the reference's
 ``make_ddp_steps`` on a one-device mesh; then the compressed program on two
 ``gloo`` ranks.  Each tolerance is stated where it is used.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -38,7 +39,8 @@ from repro_torch.convert import params_from_jax, sgdm_state_from_jax  # noqa: E4
 from repro_torch.core import compression as comp  # noqa: E402
 from repro_torch.data.synthetic import TokenData  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
-from repro_torch.models.transformer import (RunCtx, forward_hidden,  # noqa: E402
+from repro_torch.models.transformer import (RunCtx, check_supported,  # noqa: E402
+                                            forward_hidden, init_params,
                                             lm_loss, logits_fn)
 from repro_torch.optim import optimizers as topt  # noqa: E402
 from repro_torch.optim import schedules as tsched  # noqa: E402
@@ -336,11 +338,21 @@ def test_forward_loss_and_grad_match_jax(remat):
         rtol=1e-6)
 
 
-def test_forward_refuses_other_families():
-    cfg = get_config("xlstm-125m").reduced()
-    with pytest.raises(NotImplementedError):
+def test_refuses_what_the_reference_lacks():
+    """``check_supported``, ``init_params`` and ``forward_hidden`` refuse a
+    block kind no reference stack has, and the CNN family, which is no
+    transformer stack."""
+    cfg = dataclasses.replace(get_config("xlstm-125m").reduced(),
+                              layer_pattern=("mlstm", "conv"))
+    with pytest.raises(ValueError, match="'conv'"):
+        check_supported(cfg)
+    with pytest.raises(ValueError, match="'conv'"):
+        init_params(None, cfg, device="meta")
+    with pytest.raises(ValueError, match="'conv'"):
         forward_hidden({}, torch.zeros((1, 4), dtype=torch.long), cfg,
                        RunCtx(device="cpu"))
+    with pytest.raises(ValueError, match="'cnn'"):
+        check_supported(get_config("paper-cnn"))
 
 
 # ---------------------------------------------------------------------------

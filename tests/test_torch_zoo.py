@@ -16,7 +16,7 @@ cache`` and ``ChunkedPrefill`` against the reference; the port's decode
 against its own forward; the recurrent cache's size; slot insert/evict of
 recurrent state; paged against fixed-slot decode; ``prefix_sharing_
 supported``; the real runner behind the scheduler; the launcher; and
-``check_supported``.  Each tolerance is stated where it is used.
+``check_supported`` over the whole registry.  Each tolerance is stated where it is used.
 """
 import dataclasses
 
@@ -34,6 +34,7 @@ from repro.models import transformer as jtf  # noqa: E402
 from repro.train.step import make_loss_fn as jax_make_loss_fn  # noqa: E402
 from repro_torch import serve as tserve  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.registry import ASSIGNED_ARCHS  # noqa: E402
 from repro_torch.convert import cache_from_jax, params_from_jax  # noqa: E402
 from repro_torch.launch import serve as launch  # noqa: E402
 from repro_torch.models import decode as tdec  # noqa: E402
@@ -119,18 +120,14 @@ def test_check_supported_accepts_moe_and_hybrid(arch):
     check_supported(cfg, cfg.pattern_for_long_context())
 
 
-@pytest.mark.parametrize("arch", ["xlstm-125m", "whisper-base",
-                                  "qwen2-vl-2b"])
-def test_check_supported_refuses_the_rest(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_supported(get_config(arch).reduced())
-
-
-def test_check_supported_refuses_xlstm_blocks_in_a_served_family():
-    cfg = dataclasses.replace(get_config("recurrentgemma-2b").reduced(),
-                              layer_pattern=("recurrent", "mlstm"))
-    with pytest.raises(NotImplementedError, match="mlstm.*ROADMAP"):
-        check_supported(cfg)
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_check_supported_accepts_every_registry_config(arch):
+    """Every model of the registry, full, reduced and under its
+    long-context pattern: the port serves the whole zoo."""
+    cfg = get_config(arch)
+    check_supported(cfg)
+    check_supported(cfg.reduced())
+    check_supported(cfg, cfg.pattern_for_long_context())
 
 
 @pytest.mark.parametrize("arch", ARCHS)
