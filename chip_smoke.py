@@ -144,6 +144,26 @@ package.  Phases, each fatal on failure (exit code 1, no result line):
    phase: logits within 1e-4 of their max, the loss within 1e-5, every
    gradient leaf within 1e-4 of its max; no kernel launched; then time
    forward + backward with CUDA events beside the counted flops;
+8e. (after phase 9's training step times, once phase 8's state is freed)
+   the training launcher: (a) ``train.make_train_step`` on qwen2-0.5b at
+   full width and depth (phase 8's 8 x 256 batch, uniform sample weights,
+   momentum SGD 0.9, lr 1e-3): two steps with the counters set to 0 just
+   before and read just after, one ``fused_sgdm`` per leaf per step and
+   nothing else, held against the same two steps on the plain optimizer
+   (no launch) at TRAIN_TOL; then one step at ``n_micro`` 2 against 1 at
+   MICRO_TOL, and ``n_micro`` 2 with ``grad_wire_bf16`` finite and apart
+   from the f32 wire; (b) ``repro_torch.launch.train`` at LAUNCH_ARGV
+   (Adam, 20 steps of 16 x 128 with ScaDLES weights, ``--ckpt`` to a
+   temporary directory) on the card: no kernel launched (Adam and the
+   training attention are plain), every loss finite, the first within 1.0
+   of ln V and the last below it; logs the printed s/it, the median
+   synchronised step time of steps 5-19 and the peak memory; (c) the same
+   argv at LAUNCH_CPU on the card and with ``--device cpu`` from the same
+   params: losses and lr at LAUNCH_TOL, params within 2 * sum(lr_t) and
+   under a LAUNCH_TOL share of elements apart; (d) the checkpoint of (b)
+   restored by ``restore_pytree`` on the card and on the CPU, bit for bit,
+   one ``.paths.json`` key per leaf, with the file's size and the save and
+   restore times;
 9. time each kernel's device work (CUDA events around calls queued ahead
    of the card) beside its plain version, its bound and one PyTorch call
    on the same inputs (``scaled_dot_product_attention``, ``torch.topk``
@@ -193,6 +213,7 @@ The last line of standard output is
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -333,6 +354,19 @@ ZOO_PARAMS = {"xlstm-125m": 77_627_184, "whisper-base": 83_263_488,
               "qwen2-vl-2b": 1_543_714_304}
 TRAIN = {"arch": "qwen2-0.5b", "batch": 8, "seq": 256, "loss_chunk": 128,
          "cr": 0.1, "momentum": 0.9, "lr": 1e-3, "seed": 0}
+# phase 8e: the training launcher.  (a) n_micro 2 against 1 at the
+# reference's own bar (tests/test_models_smoke.py); (b) the launcher's
+# program at full width; (c) the same argv at 3 steps of batch 2 on the
+# card and on the CPU from the same params: losses to rel 1e-4 and lr equal;
+# params within 2 * sum(lr_t), the most two Adam runs can part (its early
+# update is ~lr * sign(g), so an element whose gradient sits at f32
+# rounding level may step +lr on one side and -lr on the other), and under
+# a 1e-4 share of elements more than 1e-5 apart
+MICRO_TOL = {"rtol": 2e-4, "atol": 2e-5}
+LAUNCH_ARGV = ["--arch", "qwen2-0.5b", "--steps", "20", "--batch", "16",
+               "--seq", "128", "--scadles"]
+LAUNCH_CPU = {"steps": 3, "batch": 2}
+LAUNCH_TOL = {"loss_rel": 1e-4, "param_flip": 1e-5, "flip_share": 1e-4}
 KERNEL_SOURCES = ["flash_attention", "flash_decode", "block_topk",
                   "fused_sgdm", "scatter_agg"]
 KERNEL_NAMES = ("flash_attention", "flash_decode", "flash_decode_paged",
@@ -2257,6 +2291,264 @@ def cnn_path(torch, mods, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 8e: the training launcher
+
+
+def train_step_path(torch, mods):
+    """(a): ``make_train_step`` at full width and depth with momentum SGD:
+    two steps on the kernel path, counted, against the same two on the
+    plain path; then ``n_micro`` 2 against 1 and the bf16 wire, one step
+    each.  Returns the kernel path's launch counts."""
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import leaves
+    log("# phase 8e (a): make_train_step, qwen2-0.5b full width and depth, "
+        f"batch {TRAIN['batch']} x {TRAIN['seq']}, uniform sample weights, "
+        f"momentum SGD {TRAIN['momentum']}, lr {TRAIN['lr']}")
+    cfg, ctx, params, batch = train_setup(torch)
+    b = TRAIN["batch"]
+    batch["sample_weights"] = torch.full((b,), 1.0 / b, device=DEVICE)
+    n_leaves = len(leaves(params))
+
+    def run(backend, steps=1, **kw):
+        """(params, state, metrics by step, synchronised wall ms by
+        step)."""
+        init, update = make_optimizer("sgdm", momentum=TRAIN["momentum"],
+                                      backend=backend)
+        step_fn = make_train_step(cfg, ctx, update, lambda i: TRAIN["lr"],
+                                  **kw)
+        p, s, ms, walls = params, init(params), [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, s, m = step_fn(p, s, batch, i)
+            ms.append({k: float(v) for k, v in m.items()})
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return p, s, ms, walls
+
+    reset(mods)
+    pk, _, mk, wk = run("kernel", steps=2)
+    torch.cuda.synchronize()
+    launched = counts(mods)
+    want = expect(fused_sgdm=2 * n_leaves)
+    log(f"  launches over two steps: {launched}; step walls "
+        f"{', '.join(f'{w:.1f}' for w in wk)} ms (synchronised; the first "
+        "warms up)")
+    if launched != want:
+        fail(f"make_train_step launched {launched}, expected {want}")
+    pt, _, mt, _ = run("torch", steps=2)
+    torch.cuda.synchronize()
+    if counts(mods) != launched:
+        fail(f"the plain optimizer launched kernels: {counts(mods)}")
+    for i, (a, c) in enumerate(zip(mk, mt)):
+        d_loss = abs(a["loss"] - c["loss"])
+        log(f"  step {i}: loss {a['loss']:.6f} (plain {c['loss']:.6f}, diff "
+            f"{d_loss:.3e}), grad_norm {a['grad_norm']:.6f} (plain "
+            f"{c['grad_norm']:.6f})")
+        if not math.isfinite(a["loss"]) or \
+                d_loss > TRAIN_TOL["loss_rel"] * abs(c["loss"]):
+            fail(f"step {i}: make_train_step's kernel path disagrees with "
+                 "the plain path")
+    d_param = max(max_err(x, y) for x, y in zip(leaves(pk), leaves(pt)))
+    log(f"  after 2 steps: params max_abs_err {d_param:.3e} vs the plain "
+        f"path (bound {TRAIN_TOL['param_abs']:g})")
+    if not d_param <= TRAIN_TOL["param_abs"]:
+        fail("make_train_step's params disagree with the plain path")
+    del pk, pt
+
+    whole, _, _, _ = run("kernel")
+    micro, _, mm, wm = run("kernel", n_micro=2)
+    worst = max(float(((x - y).abs() - MICRO_TOL["rtol"] * y.abs()).max())
+                for x, y in zip(leaves(micro), leaves(whole)))
+    log(f"  n_micro 2 against 1, one step ({wm[0]:.1f} ms): worst |diff| - "
+        f"rtol * |whole| = {worst:.3e} (bound atol {MICRO_TOL['atol']:g}, "
+        f"rtol {MICRO_TOL['rtol']:g})")
+    if not worst <= MICRO_TOL["atol"]:
+        fail("two microbatches disagree with the whole batch")
+    del whole
+    wire, _, mw, _ = run("kernel", n_micro=2, grad_wire_bf16=True)
+    finite = all(bool(torch.isfinite(x).all()) for x in leaves(wire))
+    moved = max(max_err(x, y) for x, y in zip(leaves(wire), leaves(micro)))
+    log(f"  bf16 wire, n_micro 2: loss {mw[0]['loss']:.6f} (f32 wire "
+        f"{mm[0]['loss']:.6f}), grad_norm {mw[0]['grad_norm']:.6f} (f32 wire "
+        f"{mm[0]['grad_norm']:.6f}), params up to {moved:.3e} from the f32 "
+        "wire's")
+    if not (finite and math.isfinite(mw[0]["grad_norm"]) and moved > 0):
+        fail("the bf16 wire run is not finite, or equals the f32 wire run")
+    del wire, micro, params
+    torch.cuda.empty_cache()
+    return launched
+
+
+def launcher_path(torch, mods, card):
+    """(b)-(d): the launcher at full width on the card, counted and timed;
+    the card against the CPU from the same params; its checkpoint restored
+    on the card and on the CPU.  Returns the launch counts of (b)."""
+    import os
+    import tempfile
+    from repro_torch.checkpoint import restore_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as lt
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree import leaves
+    log(f"# phase 8e (b): python -m repro_torch.launch.train "
+        f"{' '.join(LAUNCH_ARGV)} --ckpt <tmp> on {card}")
+    lines, step_ms, save_s, update_ev = [], [], [], []
+
+    def log_line(msg):
+        log("  " + msg)
+        lines.append(msg)
+
+    make, save, make_opt = lt.make_train_step, lt.save_pytree, \
+        lt.make_optimizer
+
+    def timed_opt(*args, **kw):
+        init, update = make_opt(*args, **kw)
+
+        def timed_update(*a):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = update(*a)
+            ev[1].record()
+            update_ev.append(ev)
+            return out
+
+        return init, timed_update
+
+    def timed_make(*args, **kw):
+        step = make(*args, **kw)
+
+        def timed_step(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return timed_step
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        path = save(*args, **kw)
+        save_s.append(time.perf_counter() - t0)
+        return path
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        lt.make_train_step, lt.save_pytree, lt.make_optimizer = \
+            timed_make, timed_save, timed_opt
+        try:
+            reset(mods)
+            gc.collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            params, _, hist = lt.train(
+                lt.parse_args(LAUNCH_ARGV + ["--ckpt", tmp]), log=log_line)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            launched = counts(mods)
+        finally:
+            lt.make_train_step, lt.save_pytree, lt.make_optimizer = \
+                make, save, make_opt
+        cfg = get_config(lt.parse_args(LAUNCH_ARGV).arch)
+        losses = [m["loss"] for m in hist]
+        timed = sorted(step_ms[5:])
+        upd = sorted(a.elapsed_time(b) for a, b in update_ev[5:])
+        s_it = [ln for ln in lines if ln.startswith("step")][-1]
+        log(f"  losses {losses[0]:.4f} -> {losses[-1]:.4f} over {len(hist)} "
+            f"steps (ln V = {math.log(cfg.vocab_size):.4f}); printed "
+            f"{s_it.split('(')[-1].rstrip(')')}; step "
+            f"{timed[len(timed) // 2]:.3f} ms (median of steps 5-"
+            f"{len(step_ms) - 1}, synchronised; all "
+            f"{', '.join(f'{t:.1f}' for t in step_ms)}), of it Adam's update "
+            f"{upd[len(upd) // 2]:.3f} ms (CUDA events, median); peak "
+            f"{peak / 2**30:.2f} GiB allocated above the "
+            f"{base / 2**30:.2f} GiB resident after a gc; launches "
+            f"{launched}  [{card}]")
+        if launched != expect():
+            fail(f"the launcher (Adam) launched kernels: {launched}")
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0]
+                and abs(losses[0] - math.log(cfg.vocab_size)) < 1.0):
+            fail(f"the launcher's losses do not fall from ln V: {losses}")
+
+        launcher_vs_cpu(torch, lt, cfg, card)
+
+        log("# phase 8e (d): the launcher's checkpoint restored")
+        name = cfg.name
+        template = {"params": init_params(None, cfg, device="meta")}
+        size = os.path.getsize(os.path.join(tmp, f"{name}.npz"))
+        with open(os.path.join(tmp, f"{name}.paths.json")) as f:
+            n_paths = len(json.load(f))
+        t0 = time.perf_counter()
+        back = restore_pytree(template, tmp, name=name, device=DEVICE)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back_cpu = restore_pytree(template, tmp, name=name, device="cpu")
+        t_cpu = time.perf_counter() - t0
+        same = all(torch.equal(x, y) for x, y in
+                   zip(leaves(back["params"]), leaves(params)))
+        same_cpu = all(torch.equal(x, y.cpu()) for x, y in
+                       zip(leaves(back_cpu["params"]), leaves(params)))
+        log(f"  {size / 2**30:.3f} GiB npz, {n_paths} keys for "
+            f"{len(leaves(params))} leaves; save {save_s[0]:.2f} s, restore "
+            f"to the card {t_card:.2f} s, to the CPU {t_cpu:.2f} s; "
+            f"bit-identical: card {same}, CPU {same_cpu}  [{card}]")
+        if not (same and same_cpu and n_paths == len(leaves(params))):
+            fail("the checkpoint did not restore bit for bit")
+    del params, back, back_cpu
+    torch.cuda.empty_cache()
+    return launched
+
+
+def launcher_vs_cpu(torch, lt, cfg, card):
+    """(c): a short run of the same argv on the card and on the CPU from
+    the same params (the card's init, copied to the CPU)."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree import leaves, tree_map
+    argv = LAUNCH_ARGV + ["--steps", str(LAUNCH_CPU["steps"]), "--batch",
+                          str(LAUNCH_CPU["batch"])]
+    log(f"# phase 8e (c): {' '.join(argv)} on the card and with --device "
+        "cpu, from the same params")
+    gen = torch.Generator(device=DEVICE).manual_seed(
+        lt.parse_args(argv).seed)
+    start = init_params(gen, cfg, device=DEVICE)
+    start_cpu = tree_map(lambda t: t.cpu(), start)
+
+    def quiet(msg):
+        pass
+
+    p_card, _, h_card = lt.train(lt.parse_args(argv), params=start, log=quiet)
+    del start
+    t0 = time.perf_counter()
+    p_cpu, _, h_cpu = lt.train(lt.parse_args(argv + ["--device", "cpu"]),
+                               params=start_cpu, log=quiet)
+    cpu_s = time.perf_counter() - t0
+    for i, (a, c) in enumerate(zip(h_card, h_cpu)):
+        rel = abs(a["loss"] - c["loss"]) / abs(c["loss"])
+        log(f"  step {i}: loss {a['loss']:.6f} (CPU {c['loss']:.6f}, "
+            f"{rel:.3e} rel), lr {a['lr']:.6e} (CPU {c['lr']:.6e})")
+        if rel > LAUNCH_TOL["loss_rel"] or a["lr"] != c["lr"]:
+            fail(f"step {i}: the launcher on the card parts from the CPU")
+    lr_sum = sum(m["lr"] for m in h_cpu)
+    d_max, n_flip, n = 0.0, 0, 0
+    for x, y in zip(leaves(p_card), leaves(p_cpu)):
+        d = (x - y.to(DEVICE)).abs()
+        d_max = max(d_max, float(d.max()))
+        n_flip += int((d > LAUNCH_TOL["param_flip"]).sum())
+        n += d.numel()
+    log(f"  after {len(h_cpu)} steps: params max |diff| {d_max:.3e} (bound "
+        f"2 * sum(lr) = {2 * lr_sum:.3e}), {n_flip} of {n} elements "
+        f"({n_flip / n:.3e}) beyond {LAUNCH_TOL['param_flip']:g} (bound "
+        f"{LAUNCH_TOL['flip_share']:g}); the CPU run took {cpu_s:.1f} s  "
+        f"[{card}]")
+    if not (d_max <= 2 * lr_sum and n_flip / n < LAUNCH_TOL["flip_share"]):
+        fail("the launcher's params on the card part from the CPU's")
+
+
+# ---------------------------------------------------------------------------
 # phase 9: timing
 
 
@@ -3021,6 +3313,8 @@ def main() -> None:
     time_training(torch, train, card)
     del train
     torch.cuda.empty_cache()
+    paths["8e make_train_step"] = train_step_path(torch, mods)
+    paths["8e launcher"] = launcher_path(torch, mods, card)
     times.update(time_kernels(torch, fa, fd))
     zoo_times = time_zoo_kernels(
         torch, fa, fd, zoo_cfg(get_config, "recurrentgemma-2b"),

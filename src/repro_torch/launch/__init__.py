@@ -1,1 +1,1 @@
-"""Offline serving launcher of the port."""
+"""Launchers of the port: serving (``serve``) and training (``train``)."""

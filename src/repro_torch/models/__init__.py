@@ -1,6 +1,6 @@
 from repro_torch.models.transformer import (  # noqa: F401
     RunCtx, check_supported, encode, forward_hidden, init_params, layer_sigs,
-    lm_loss, logits_fn, stack_plan,
+    lm_loss, logits_fn, param_count_tree, stack_plan,
 )
 from repro_torch.models.decode import (  # noqa: F401
     ChunkedPrefill, decode_step, gather_prefix_kv, init_cache,

@@ -25,6 +25,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init
 
@@ -148,7 +149,16 @@ def rglru_decode_step(params, x, h, conv_state):
 
 def state_shapes(cfg: ModelConfig, batch: int):
     """Shapes of a layer's decode state: h (b, r), kept f32, and the conv
-    taps (b, 3, r), kept in the params' dtype (the reference's
-    ``init_state``)."""
+    taps (b, 3, r), kept in the params' dtype (:func:`init_state`)."""
     r = cfg.lru_dim or cfg.d_model
     return (batch, r), (batch, _CONV_W - 1, r)
+
+
+def init_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
+               device="cuda"):
+    """A layer's zero decode state on ``device``: h (b, r) in f32 and the
+    conv taps (b, 3, r) in ``dtype``."""
+    dev = resolve_device(device)
+    h_shape, conv_shape = state_shapes(cfg, batch)
+    return (torch.zeros(h_shape, dtype=torch.float32, device=dev),
+            torch.zeros(conv_shape, dtype=dtype, device=dev))

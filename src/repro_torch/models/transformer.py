@@ -42,6 +42,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.attention import chunked_attention
+from repro_torch.tree import leaves
 
 ATTN_KINDS = (ATTN_FULL, ATTN_SWA, ATTN_LOCAL)
 FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
@@ -309,6 +310,12 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
                 cfg.encoder_layers),
             "final_norm": _init_norm(cfg, dtype, dev)}
     return params
+
+
+def param_count_tree(params) -> int:
+    """The number of elements over every leaf of ``params`` (meta tensors
+    included)."""
+    return int(sum(x.numel() for x in leaves(params)))
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,7 @@ from repro_torch.core import compression as comp_lib
 from repro_torch.kernels.scatter_agg import (scatter_aggregate,
                                              scatter_aggregate_ref)
 from repro_torch.models.transformer import RunCtx
-from repro_torch.train.step import make_loss_fn
+from repro_torch.train.step import make_loss_fn, value_and_grad
 from repro_torch.tree import leaves, unflatten
 
 
@@ -96,19 +96,12 @@ def make_ddp_steps(cfg: ModelConfig, ctx: RunCtx, opt_update: Callable,
     k = max(1, int(cr * n_floats))
     phase = on_phase or (lambda name: None)
 
-    def local_loss_and_grads(params, batch):
-        flat_p = leaves(params)
-        live = [p.detach().requires_grad_() for p in flat_p]
-        total, m = loss_fn(unflatten(params, live), batch)
-        grads = torch.autograd.grad(total, live, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, flat_p)]
-        return unflatten(params, grads), m["loss"].detach()
-
     def begin(params, batch, rates):
         rank, size = world()
-        grads, loss = local_loss_and_grads(params, _shard(batch, rank, size))
-        flat, unflatten_fn = comp_lib.flatten_grads(grads)
+        _, m, grads = value_and_grad(loss_fn, params,
+                                     _shard(batch, rank, size))
+        loss = m["loss"]
+        flat, unflatten_fn = comp_lib.flatten_grads(unflatten(params, grads))
         del grads
         rate = rates.reshape(-1)[rank:rank + 1].float()
         total = _all_reduce(rate.clone(), size)

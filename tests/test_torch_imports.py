@@ -5,7 +5,9 @@
   ``obs``, ``core/streams.py``, ``models/paging.py``, and the trainer
   slice: ``core/scadles.py`` and its modules, ``fleet``, ``models/mlp.py``;
   the streamdata slice: ``streamdata``, ``models/cnn.py``,
-  ``serve/control.py``) and of ``chip_smoke.py`` finds no import of ``jax``
+  ``serve/control.py``; the training launcher slice: ``train/step.py``,
+  ``checkpoint``, ``launch/train.py``, ``obs/profile.py``,
+  ``obs/regress.py``) and of ``chip_smoke.py`` finds no import of ``jax``
   or of the ``repro`` package.
 * Every entry point runs on ``cuda`` unless asked for the CPU, and raises
   where there is no card (these tests skip on a machine that has one);
@@ -257,6 +259,39 @@ def test_cnn_defaults_to_cuda(no_card):
         "w"].shape == (3, 3, 256, 256)
     with pytest.raises(RuntimeError, match="cuda"):
         cnn_params_from_jax(as_numpy, cfg)
+
+def test_scan_covers_the_training_launcher_slice():
+    scanned = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in PORT_FILES[:-1]}
+    assert {"checkpoint/__init__.py", "checkpoint/ckpt.py",
+            "launch/train.py", "obs/profile.py", "obs/regress.py",
+            "train/step.py"} <= scanned
+
+
+def test_training_launcher_slice_defaults_to_cuda(no_card, tmp_path):
+    """The training launcher, ``restore_pytree`` and ``rglru.init_state``
+    run on the card unless asked for the CPU, and raise here."""
+    from repro_torch.checkpoint import restore_pytree, save_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import rglru
+    assert train.parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--reduced", "--steps", "1", "--batch", "2", "--seq",
+                    "8"])
+    save_pytree({"w": torch.ones(2)}, str(tmp_path))
+    with pytest.raises(RuntimeError, match="cuda"):
+        restore_pytree({"w": torch.empty(2, device="meta")}, str(tmp_path))
+    assert torch.equal(restore_pytree({"w": torch.empty(2, device="meta")},
+                                      str(tmp_path), device="cpu")["w"],
+                       torch.ones(2))
+    cfg = get_config("recurrentgemma-2b").reduced()
+    with pytest.raises(RuntimeError, match="cuda"):
+        rglru.init_state(cfg, 2)
+    h, conv = rglru.init_state(cfg, 2, dtype=torch.bfloat16, device="cpu")
+    assert (h.dtype, conv.dtype, conv.shape[1]) == (torch.float32,
+                                                    torch.bfloat16, 3)
+
 
 def test_kernel_build_raises_without_nvcc(monkeypatch):
     """A kernel that cannot be built raises; nothing falls back."""

@@ -99,8 +99,11 @@ def test_rglru_decode_steps_match_block_and_jax():
     x = _x(cfg, 3, s, seed=3)
     ty_block, (th_block, tc_block) = trg.rglru_block(
         tp, torch.from_numpy(x), return_state=True, chunk=8)
-    h, conv = (torch.zeros(sh) for sh in trg.state_shapes(cfg, 3))
+    h, conv = trg.init_state(cfg, 3, device="cpu")
     jh, jc = jrg.init_state(cfg, 3)
+    _close(h, jh)
+    _close(conv, jc)
+    assert (h.dtype, conv.dtype) == (torch.float32, torch.float32)
     for t in range(s):
         xt = x[:, t:t + 1]
         ty, h, conv = trg.rglru_decode_step(tp, torch.from_numpy(xt), h,
