@@ -164,6 +164,36 @@ package.  Phases, each fatal on failure (exit code 1, no result line):
    restored by ``restore_pytree`` on the card and on the CPU, bit for bit,
    one ``.paths.json`` key per leaf, with the file's size and the save and
    restore times;
+8f. (after 8e) the training attention, ``chunked_attention(backend=
+   "torch")`` (the chunked flash with its own backward): forward and
+   ``torch.autograd.grad`` of ``sum(sin(o))`` on the card against the CPU
+   at qwen2-0.5b's head layout (h 14, kv 2, hd 64, f32), 2 x 512 causal
+   and swa 256, chunks 128, at FLASH_TRAIN's bars, none of the six
+   kernels launched; then one causal forward + backward at 2 x 4 096 in
+   turns with the full path (``flash_attention_ref`` under autograd),
+   held against it, with the peak memory above the inputs, the wall ms
+   and the launches (torch.profiler) of each; the chunked flash's peak
+   must be below the full path's;
+8g. the training launcher at full width and depth on a long sequence
+   (LONG_ARGV: 3 Adam steps of 2 x 4 096, chunks of 128): every loss
+   finite, lr the schedule's, no kernel launched; logs the printed s/it,
+   each synchronised step and the peak memory;
+8h. ``launch/mesh.py::make_test_mesh((1, 1))`` on a one-rank NCCL group
+   (a ``HashStore``, destroyed afterwards): ``context_parallel_attention``
+   over it equals ``chunked_attention(static_offset=False)`` bit for bit,
+   output and gradients, causal and swa; ``psum_weighted`` returns the
+   gradient and the rate;
+8i. the five ``examples/*_torch.py``, each in a fresh interpreter with
+   ``PYTHONPATH=src`` in a temporary working directory: quickstart (the
+   loss falls), train_e2e at its default and ``--full --steps 5``
+   (xlstm-125m at full width and depth; s/it printed, checkpoint
+   written), serve_batched (run as ``__main__`` by ``runpy`` so its
+   ``flash_attention`` and ``flash_decode`` launches are counted, both
+   above 0 and nothing else; requests conserved), scadles_streaming (iid
+   and ``--skew dirichlet``) and fleet_churn, whose lines must equal the
+   same scripts' ``--device cpu`` runs (made at the same time), losses
+   and accuracies within one unit of their printed digit; wall times
+   logged;
 9. time each kernel's device work (CUDA events around calls queued ahead
    of the card) beside its plain version, its bound and one PyTorch call
    on the same inputs (``scaled_dot_product_attention``, ``torch.topk``
@@ -367,6 +397,35 @@ LAUNCH_ARGV = ["--arch", "qwen2-0.5b", "--steps", "20", "--batch", "16",
                "--seq", "128", "--scadles"]
 LAUNCH_CPU = {"steps": 3, "batch": 2}
 LAUNCH_TOL = {"loss_rel": 1e-4, "param_flip": 1e-5, "flip_share": 1e-4}
+# phase 8f: the chunked flash (the training attention) at qwen2-0.5b's head
+# layout, f32, chunks of 128 as the launcher takes them (min(128, seq));
+# card against CPU at the CPU tests' bars against the reference (forward
+# 1e-5; gradients of sum(sin(o)) 1e-4 rel + 1e-5), then one forward +
+# backward at 2 x 4 096 in turns with the full path
+FLASH_TRAIN = {"heads": 14, "kv": 2, "hd": 64, "batch": 2, "seq": 512,
+               "long_seq": 4096, "chunk": 128, "seed": 0,
+               "cases": (("causal", 0), ("swa", 256)),
+               "fwd_tol": 1e-5, "grad_rtol": 1e-4, "grad_atol": 1e-5}
+# phase 8g: the launcher at full width and depth on a long sequence
+LONG_ARGV = ["--batch", "2", "--seq", "4096", "--steps", "3", "--scadles"]
+# phase 8i: the examples' counterparts on the card, (label, example, argv);
+# the "held" ones also run with --device cpu at the same time, and their
+# lines must match, losses and accuracies within acc_tol (one unit of the
+# printed .3f)
+EXAMPLES = {"card": (("quickstart", "quickstart", []),
+                     ("train_e2e", "train_e2e", []),
+                     ("train_e2e --full", "train_e2e",
+                      ["--full", "--steps", "5"]),
+                     ("serve_batched", "serve_batched", []),
+                     ("scadles_streaming", "scadles_streaming", []),
+                     ("scadles_streaming dirichlet", "scadles_streaming",
+                      ["--skew", "dirichlet"]),
+                     ("fleet_churn", "fleet_churn", [])),
+            "held": ("scadles_streaming", "scadles_streaming dirichlet",
+                     "fleet_churn"),
+            "ckpt": {"train_e2e": "xlstm-125m-reduced.npz",
+                     "train_e2e --full": "xlstm-125m.npz"},
+            "acc_tol": 1e-3, "timeout_s": 420}
 KERNEL_SOURCES = ["flash_attention", "flash_decode", "block_topk",
                   "fused_sgdm", "scatter_agg"]
 KERNEL_NAMES = ("flash_attention", "flash_decode", "flash_decode_paged",
@@ -533,6 +592,14 @@ def check_kernels(torch, fa, fd):
         ("whisper self", 8, 128, 128, 8, 8, 64, "causal", 0, 0, "float32"),
         ("qwen2-vl prefill", 8, 128, 128, 12, 2, 128, "causal", 0, 0,
          "float32"),
+        # phase 8i: serve_batched_torch.py's reduced recurrentgemma-2b (h 4,
+        # kv 1, hd 64, f32, swa window 64): a 16-token prompt, the cost
+        # model's 8-token probe, and a chunk of a prompt at its q_offset
+        ("serve_batched prompt", 1, 16, 16, 4, 1, 64, "swa", 64, 0,
+         "float32"),
+        ("serve_batched probe", 1, 8, 8, 4, 1, 64, "swa", 64, 0, "float32"),
+        ("serve_batched chunk", 1, 8, 16, 4, 1, 64, "swa", 64, 8,
+         "float32"),
     ]
     errs = {"flash_attention": [], "flash_decode": []}
     log("# phase 4: kernels vs plain versions")
@@ -590,6 +657,13 @@ def check_kernels(torch, fa, fd):
          [129, 130, 133, 137, 140, 141, 143, 144], "float32"),
         ("qwen2-vl decode", 8, 144, 12, 2, 128,
          [129, 130, 133, 137, 140, 141, 143, 144], "float32"),
+        # phase 8i: serve_batched_torch.py's 4 slots of 16 + 32 (g 4, hd
+        # 64, f32): a slot just filled beside fresh ones, mixed ages, the
+        # cache full
+        ("serve_batched decode", 4, 48, 4, 1, 64, [17, 1, 1, 1], "float32"),
+        ("serve_batched decode", 4, 48, 4, 1, 64, [1, 17, 35, 48],
+         "float32"),
+        ("serve_batched decode", 4, 48, 4, 1, 64, [48] * 4, "float32"),
     ]
     for (label, b, S, h, kv, hd, lens, dt) in dec_cases:
         q = rand(torch, (b, 1, h, hd), dts[dt], gen)
@@ -2380,6 +2454,25 @@ def train_step_path(torch, mods):
     return launched
 
 
+def timing_steps(torch, make, step_ms):
+    """``make_train_step`` wrapped so that each step's synchronised wall
+    ms goes to ``step_ms``."""
+    def timed_make(*args, **kw):
+        step = make(*args, **kw)
+
+        def timed_step(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return timed_step
+
+    return timed_make
+
+
 def launcher_path(torch, mods, card):
     """(b)-(d): the launcher at full width on the card, counted and timed;
     the card against the CPU from the same params; its checkpoint restored
@@ -2415,18 +2508,7 @@ def launcher_path(torch, mods, card):
 
         return init, timed_update
 
-    def timed_make(*args, **kw):
-        step = make(*args, **kw)
-
-        def timed_step(*a):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = step(*a)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            return out
-
-        return timed_step
+    timed_make = timing_steps(torch, make, step_ms)
 
     def timed_save(*args, **kw):
         t0 = time.perf_counter()
@@ -2546,6 +2628,396 @@ def launcher_vs_cpu(torch, lt, cfg, card):
         f"[{card}]")
     if not (d_max <= 2 * lr_sum and n_flip / n < LAUNCH_TOL["flip_share"]):
         fail("the launcher's params on the card part from the CPU's")
+
+
+# ---------------------------------------------------------------------------
+# phases 8f-8i: the training attention, the launcher at 2 x 4 096, the mesh
+# and context parallelism, the examples
+
+
+def _grad_close(a, b, rtol, atol) -> float:
+    """The worst |a - b| / (atol + rtol |b|) over a pair of gradients."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+
+def _attention_inputs(torch, b, s, gen, device, grad=True):
+    h, kvh, hd = (FLASH_TRAIN[k] for k in ("heads", "kv", "hd"))
+    shapes = ((b, s, h, hd), (b, s, kvh, hd), (b, s, kvh, hd))
+    return [torch.randn(shape, generator=gen, device=gen.device).to(
+        device).requires_grad_(grad) for shape in shapes]
+
+
+def _fwd_bwd(torch, attend, ts):
+    o = attend(*ts)
+    return o, torch.autograd.grad(torch.sin(o).sum(), ts)
+
+
+def launches_in(torch, fn) -> int:
+    """Kernel launches the host issued in one call of ``fn`` (the
+    cudaLaunchKernel-style events under torch.profiler)."""
+    events = profiled(torch, fn, 1)
+    return sum(e.count for e in events if "LaunchKernel" in e.key)
+
+
+def training_attention_path(torch, mods, card):
+    """Phase 8f (a): the chunked flash (``chunked_attention(backend=
+    "torch")``) forward and backward on the card against the CPU at
+    qwen2-0.5b's head layout; then at 2 x 4 096 in turns with the full
+    path (``flash_attention_ref`` under autograd): peak memory above the
+    inputs, wall ms and launches of one forward + backward."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models.attention import chunked_attention
+    ft = FLASH_TRAIN
+    chunk = ft["chunk"]
+    log(f"# phase 8f (a): the chunked flash on the card against the CPU, "
+        f"f32, h {ft['heads']} kv {ft['kv']} hd {ft['hd']}, {ft['batch']} x "
+        f"{ft['seq']}, chunks {chunk}")
+    gen = torch.Generator().manual_seed(ft["seed"])
+    for kind, window in ft["cases"]:
+        base = _attention_inputs(torch, ft["batch"], ft["seq"], gen, "cpu",
+                                 grad=False)
+
+        def attend(q, k, v):
+            return chunked_attention(q, k, v, kind=kind, window=window,
+                                     chunk_q=chunk, chunk_k=chunk,
+                                     backend="torch")
+
+        reset(mods)
+        card_o, card_g = _fwd_bwd(torch, attend, [
+            x.to(DEVICE).requires_grad_() for x in base])
+        torch.cuda.synchronize()
+        launched = counts(mods)
+        cpu_o, cpu_g = _fwd_bwd(torch, attend, [x.clone().requires_grad_()
+                                                for x in base])
+        err = max_err(card_o.detach().cpu(), cpu_o.detach())
+        worst = max(_grad_close(a, b, ft["grad_rtol"], ft["grad_atol"])
+                    for a, b in zip(card_g, cpu_g))
+        log(f"  {kind} {window or ''}: forward max_abs_err {err:.3e} (bound "
+            f"{ft['fwd_tol']:g}); gradients at {worst:.3f} of their bound "
+            f"({ft['grad_rtol']:g} rel + {ft['grad_atol']:g}); launches "
+            f"{launched}")
+        if launched != expect():
+            fail(f"phase 8f: the chunked flash launched kernels: {launched}")
+        if not (err <= ft["fwd_tol"] and worst <= 1.0):
+            fail(f"phase 8f {kind}: the card parts from the CPU")
+
+    b, s = ft["batch"], ft["long_seq"]
+    log(f"# phase 8f (a): one causal attention forward + backward at {b} x "
+        f"{s}, chunks {chunk}: the chunked flash and the full path "
+        "(flash_attention_ref under autograd), in turns")
+    ts = _attention_inputs(torch, b, s, torch.Generator(
+        device=DEVICE).manual_seed(ft["seed"]), DEVICE)
+    paths = {
+        "chunked": lambda q, k, v: chunked_attention(
+            q, k, v, kind="causal", chunk_q=chunk, chunk_k=chunk,
+            backend="torch"),
+        "full": lambda q, k, v: flash_attention_ref(q, k, v, kind="causal")}
+    (co, cg), (fo, fg) = (_fwd_bwd(torch, paths[n], ts)
+                          for n in ("chunked", "full"))
+    err = max_err(co.detach(), fo.detach())
+    worst = max(_grad_close(a, b_, ft["grad_rtol"], ft["grad_atol"])
+                for a, b_ in zip(cg, fg))
+    del co, cg, fo, fg
+    log(f"  chunked against full: forward max_abs_err {err:.3e}, gradients "
+        f"at {worst:.3f} of their bound")
+    if not (err <= ft["fwd_tol"] and worst <= 1.0):
+        fail("phase 8f: the chunked flash parts from the full path")
+    res = {n: {"ms": [], "peak": []} for n in paths}
+    for name in ("chunked", "full", "full", "chunked"):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = _fwd_bwd(torch, paths[name], ts)
+        torch.cuda.synchronize()
+        res[name]["ms"].append((time.perf_counter() - t0) * 1e3)
+        res[name]["peak"].append(torch.cuda.max_memory_allocated() - base)
+        del out
+    for name in paths:
+        res[name]["launches"] = launches_in(
+            torch, lambda: _fwd_bwd(torch, paths[name], ts))
+        r = res[name]
+        log(f"  {name}: {', '.join(f'{t:.2f}' for t in r['ms'])} ms (wall, "
+            f"synchronised, in turns), peak "
+            f"{', '.join(f'{p / 2**30:.3f}' for p in r['peak'])} GiB above "
+            f"the inputs, {r['launches']} launches (torch.profiler)  [{card}]")
+    if max(res["chunked"]["peak"]) >= min(res["full"]["peak"]):
+        fail("phase 8f: the chunked flash's peak memory is not below the "
+             "full path's")
+    del ts
+    torch.cuda.empty_cache()
+
+
+def long_launcher_path(torch, mods, card):
+    """Phase 8g (b): the training launcher at full width and depth on
+    2 x 4 096 tokens, through the chunked flash at chunk 128."""
+    from repro_torch.launch import train as lt
+    from repro_torch.optim.schedules import warmup_cosine
+    log(f"# phase 8g (b): python -m repro_torch.launch.train "
+        f"{' '.join(LONG_ARGV)} on {card}")
+    args = lt.parse_args(LONG_ARGV)
+    step_ms, lines = [], []
+    make = lt.make_train_step
+
+    def log_line(msg):
+        log("  " + msg)
+        lines.append(msg)
+
+    lt.make_train_step = timing_steps(torch, make, step_ms)
+    try:
+        reset(mods)
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params, _, hist = lt.train(args, log=log_line)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        launched = counts(mods)
+    finally:
+        lt.make_train_step = make
+    schedule = warmup_cosine(args.lr, max(args.steps // 10, 1), args.steps)
+    losses = [m["loss"] for m in hist]
+    s_it = [ln for ln in lines if ln.startswith("step")][-1]
+    log(f"  losses {', '.join(f'{x:.4f}' for x in losses)}; printed "
+        f"{s_it.split('(')[-1].rstrip(')')}; steps "
+        f"{', '.join(f'{t:.1f}' for t in step_ms)} ms (synchronised); peak "
+        f"{peak / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB resident "
+        f"after a gc; launches {launched}  [{card}]")
+    if launched != expect():
+        fail(f"phase 8g: the launcher launched kernels: {launched}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 8g: a loss is not finite: {losses}")
+    lrs = [m["lr"] for m in hist]
+    if lrs != [schedule(i) for i in range(args.steps)]:
+        fail(f"phase 8g: lr {lrs} is not the schedule's")
+    del params, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_path(torch, card):
+    """Phase 8h (c): ``make_test_mesh`` on a one-rank NCCL group;
+    ``context_parallel_attention`` over its (1, 1) mesh against
+    ``chunked_attention(static_offset=False)`` bit for bit, forward and
+    gradients; ``psum_weighted`` returns the gradient and the rate."""
+    import torch.distributed as dist
+    from repro_torch.core import psum_weighted
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.attention import (chunked_attention,
+                                              context_parallel_attention)
+    ft = FLASH_TRAIN
+    chunk = ft["chunk"]
+    log(f"# phase 8h (c): the mesh, context parallelism and psum_weighted on "
+        f"a one-rank NCCL group, {ft['batch']} x {ft['seq']}")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_test_mesh((1, 1))
+        log(f"  mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on "
+            f"{mesh.device_type} ({dist.get_backend()})")
+        if (tuple(mesh.shape) != (1, 1) or mesh.device_type != "cuda"
+                or mesh.mesh_dim_names != ("data", "model")):
+            fail("phase 8h: make_test_mesh built the wrong mesh")
+        gen = torch.Generator(device=DEVICE).manual_seed(ft["seed"] + 1)
+        for kind, window in ft["cases"]:
+            ts = _attention_inputs(torch, ft["batch"], ft["seq"], gen,
+                                   DEVICE)
+            cp = _fwd_bwd(torch, lambda q, k, v: context_parallel_attention(
+                q, k, v, mesh, "model", kind=kind, window=window,
+                chunk_q=chunk, chunk_k=chunk), ts)
+            ref = _fwd_bwd(torch, lambda q, k, v: chunked_attention(
+                q, k, v, kind=kind, window=window, q_offset=0,
+                chunk_q=chunk, chunk_k=chunk, static_offset=False,
+                backend="torch"), ts)
+            same = [torch.equal(a, b) for a, b in
+                    zip((cp[0], *cp[1]), (ref[0], *ref[1]))]
+            log(f"  {kind} {window or ''}: output, dq, dk, dv bit-identical "
+                f"to chunked_attention(static_offset=False): {same}")
+            if not all(same):
+                fail(f"phase 8h {kind}: context_parallel_attention differs")
+        grad = {"a": torch.randn(4097, generator=gen, device=DEVICE),
+                "b": {"c": torch.randn((7, 3), generator=gen,
+                                       device=DEVICE)}}
+        agg, total = psum_weighted(grad, 2.5, mesh, ("data", "model"))
+        same = (torch.equal(agg["a"], grad["a"])
+                and torch.equal(agg["b"]["c"], grad["b"]["c"]))
+        log(f"  psum_weighted: the gradient back bit for bit {same}, total "
+            f"rate {float(total)}")
+        if not (same and float(total) == 2.5):
+            fail("phase 8h: psum_weighted on one rank is not the identity")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+# the example run in a fresh interpreter as __main__, then the wrappers'
+# launch counts on a line of their own
+_COUNTED_RUN = """
+import json, runpy, sys
+from repro_torch.kernels import block_topk as bt
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import scatter_agg as sa
+sys.argv = sys.argv[1:]
+fa.launches = fd.launches = fd.paged_launches = sa.launches = 0
+for key in bt.launches:
+    bt.launches[key] = 0
+runpy.run_path(sys.argv[0], run_name="__main__")
+print("LAUNCHES " + json.dumps({
+    "flash_attention": fa.launches, "flash_decode": fd.launches,
+    "flash_decode_paged": fd.paged_launches,
+    "block_topk": bt.launches["block_topk"],
+    "fused_sgdm": bt.launches["fused_sgdm"],
+    "scatter_aggregate": sa.launches}))
+"""
+
+
+def _example_cmd(name, args, counted=False):
+    script = str(ROOT / "examples" / f"{name}_torch.py")
+    if counted:
+        return [sys.executable, "-c", _COUNTED_RUN, script, *args]
+    return [sys.executable, script, *args]
+
+
+def _start(cmd, cwd, threads=None):
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
+    return subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _finish(proc, label, timeout):
+    """Wait for ``proc``; fail with the tail of its errors unless it exits
+    0.  Returns its standard output."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"phase 8i: {label} ran past {timeout} s")
+    if proc.returncode != 0:
+        fail(f"phase 8i: {label} exited {proc.returncode}: {err[-3000:]}")
+    return out
+
+
+def _same_lines(card_out, cpu_out, loose_after, tol):
+    """Card lines against the CPU's: the same text between the numbers,
+    every number equal except those after a ``loose_after`` label (losses
+    and accuracies), which may differ by ``tol``.  Returns the largest
+    loose difference; fails on any other difference."""
+    import re
+    num = re.compile(r"[-+]?\d+(?:\.\d+)?(?:e[-+]?\d+)?")
+    row = re.compile(r"^\s*\d+\s+\d+\.\d\s+")     # a fleet timeline row
+    a_lines, b_lines = card_out.strip().splitlines(), \
+        cpu_out.strip().splitlines()
+    if len(a_lines) != len(b_lines):
+        fail(f"phase 8i: {len(a_lines)} lines on the card, {len(b_lines)} "
+             "on the CPU")
+    worst = 0.0
+    for a, b in zip(a_lines, b_lines):
+        skel = num.split(b)
+        if num.split(a) != skel:
+            fail(f"phase 8i: card line {a!r} against CPU line {b!r}")
+        for i, (x, y) in enumerate(zip(num.findall(a), num.findall(b))):
+            if (skel[i].strip().endswith(loose_after)
+                    or (row.match(b) and i == 2)):
+                worst = max(worst, abs(float(x) - float(y)))
+                if abs(float(x) - float(y)) > tol + 1e-9:
+                    fail(f"phase 8i: card {a!r} against CPU {b!r}")
+            elif x != y:
+                fail(f"phase 8i: card line {a!r} against CPU line {b!r}")
+    return worst
+
+
+def examples_path(torch, mods, card):
+    """Phase 8i (d): the five ``examples/*_torch.py`` on the card, each a
+    fresh interpreter in a temporary working directory.  The CPU runs that
+    two of them are held against run at the same time, on two threads
+    each.  Returns ``serve_batched_torch.py``'s launch counts."""
+    import os
+    import tempfile
+    ex = EXAMPLES
+    log(f"# phase 8i (d): the five examples on {card}, python "
+        "examples/<name>_torch.py, PYTHONPATH=src")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        def cwd(label):
+            path = os.path.join(tmp, label.replace(" ", "_"))
+            os.makedirs(path)
+            return path
+
+        held = {label: (name, args) for label, name, args in ex["card"]
+                if label in ex["held"]}
+        cpu_runs = {label: _start(_example_cmd(name, args + ["--device",
+                                                             "cpu"]),
+                                  cwd(label + " cpu"), threads=2)
+                    for label, (name, args) in held.items()}
+        try:
+            outs, walls, launched = {}, {}, None
+            for label, name, args in ex["card"]:
+                counted = name == "serve_batched"
+                t0 = time.perf_counter()
+                out = _finish(_start(_example_cmd(name, args, counted),
+                                     cwd(label)), label, ex["timeout_s"])
+                walls[label] = time.perf_counter() - t0
+                outs[label] = out
+                tail = out.strip().splitlines()
+                log(f"  {label}: {walls[label]:.1f} s wall (process start "
+                    f"included); last line: {tail[-2 if counted else -1]}"
+                    f"  [{card}]")
+                if counted:
+                    launched = json.loads(tail[-1].split(" ", 1)[1])
+                    summary = dict(ln.split(" = ") for ln in tail[:-1])
+                    n = int(summary["n_requests"])
+                    done = int(summary["completed"]) + int(summary["dropped"])
+                    log(f"  {label}: launches {launched}; {n} requests, "
+                        f"{summary['completed']} completed, "
+                        f"{summary['dropped']} dropped")
+                    if not (launched["flash_attention"] > 0
+                            and launched["flash_decode"] > 0
+                            and launched == expect(
+                                flash_attention=launched["flash_attention"],
+                                flash_decode=launched["flash_decode"])):
+                        fail(f"phase 8i: serve_batched launched {launched}")
+                    if not (n > 0 and done == n):
+                        fail(f"phase 8i: serve_batched lost requests: "
+                             f"{summary}")
+            cpu_outs = {label: _finish(proc, label + " --device cpu",
+                                       ex["timeout_s"])
+                        for label, proc in cpu_runs.items()}
+        finally:
+            for proc in cpu_runs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        first, last = (float(x) for x in outs["quickstart"].strip()
+                       .splitlines()[-1].split(":")[1].split("->"))
+        if not last < first:
+            fail(f"phase 8i: quickstart's loss did not fall ({first} -> "
+                 f"{last})")
+        for label, ckpt in ex["ckpt"].items():
+            path = os.path.join(tmp, label.replace(" ", "_"), "artifacts",
+                                "ckpt", ckpt)
+            if not os.path.exists(path):
+                fail(f"phase 8i: {label} wrote no checkpoint {ckpt}")
+            s_it = [ln for ln in outs[label].splitlines()
+                    if ln.startswith("step")][-1]
+            log(f"  {label}: {s_it.split('(')[-1].rstrip(')')} printed, "
+                f"{os.path.getsize(path) / 2**20:.1f} MiB checkpoint "
+                f"{ckpt}  [{card}]")
+        for label in held:
+            worst = _same_lines(outs[label], cpu_outs[label],
+                                ("acc=", "acc", "scadles=", "ddl=", "(drop",
+                                 "loss=", "loss"), ex["acc_tol"])
+            log(f"  {label}: every line equals the --device cpu run's, "
+                f"losses and accuracies within {worst:.3g} (bound "
+                f"{ex['acc_tol']:g})")
+    return launched
 
 
 # ---------------------------------------------------------------------------
@@ -3315,6 +3787,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     paths["8e make_train_step"] = train_step_path(torch, mods)
     paths["8e launcher"] = launcher_path(torch, mods, card)
+    training_attention_path(torch, mods, card)
+    long_launcher_path(torch, mods, card)
+    mesh_path(torch, card)
+    paths["8i serve_batched_torch.py"] = examples_path(torch, mods, card)
     times.update(time_kernels(torch, fa, fd))
     zoo_times = time_zoo_kernels(
         torch, fa, fd, zoo_cfg(get_config, "recurrentgemma-2b"),

@@ -18,5 +18,6 @@ from repro_torch.core.streams import (  # noqa: F401
     TABLE_I, StreamDist, StreamSimulator, streaming_latency,
 )
 from repro_torch.core.weighted_agg import (  # noqa: F401
-    clip_batch, linear_scaled_lr, rate_weights, weighted_aggregate,
+    clip_batch, linear_scaled_lr, psum_weighted, rate_weights,
+    weighted_aggregate,
 )

@@ -4,17 +4,19 @@ Counterpart of ``repro/core/weighted_agg.py``.  Devices train on
 rate-proportional batches b_i = clip(S_i, b_min, b_max) and gradients
 combine with weights r_i = S_i / sum_j S_j.  ``weighted_aggregate`` is the
 stacked-gradients form the trainer runs: one ``tensordot`` over the leading
-device axis, leaf by leaf.  The reference's shard_map form,
-``psum_weighted``, is a collective body no trainer path calls; it waits for
-the port's distribution slice.
+device axis, leaf by leaf.  ``psum_weighted`` is the same sum across
+processes, over a device mesh's axes (the reference's shard_map body).
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import grad_and_value
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, tree_map
 
 
 def clip_batch(rates, b_min: int, b_max: int):
@@ -60,6 +62,36 @@ def linear_scaled_lr(base_lr: float, rates, base_global_batch: float):
     an f32 tensor on the rates' device."""
     gamma = torch.sum(torch.as_tensor(rates).float()) / base_global_batch
     return base_lr * gamma
+
+
+def psum_weighted(grad, rate, mesh, axes: Sequence[str]):
+    """Eqn 4b across processes: the weighted all-reduce of this rank's
+    gradient over ``mesh``'s ``axes`` (a ``DeviceMesh``).
+
+    grad: this rank's gradient pytree; rate: its scalar streaming rate.
+    The rates are all-reduced over each axis's group in turn into their
+    total, this rank's weight is ``w = rate / max(total, 1e-9)``, and each
+    leaf ``g * w`` is all-reduced over the same groups.  Returns
+    ``(g~, total)``, as the reference's code does: its docstring calls the
+    second value gamma = sum(rates) / n, but what it returns is the sum of
+    the rates, and so does this.  The all-reduces are in place on fresh
+    tensors and carry no autograd: this aggregates gradients.
+    """
+    dev = leaves(grad)[0].device
+    rate = torch.as_tensor(rate, dtype=torch.float32, device=dev)
+    total = rate.clone()
+    groups = [mesh.get_group(ax) for ax in axes]
+    for group in groups:
+        dist.all_reduce(total, group=group)
+    w = rate / torch.clamp(total, min=1e-9)
+
+    def agg(g):
+        y = g * w.to(g.dtype)
+        for group in groups:
+            dist.all_reduce(y, group=group)
+        return y
+
+    return tree_map(agg, grad), total
 
 
 def masked_mean_grads(loss_fn, params, batch, mask):

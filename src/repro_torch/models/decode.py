@@ -727,6 +727,8 @@ class ChunkedPrefill:
             hc = _norm(bp["norm_cross"], x, cfg)
             q = cross_query(bp["cross"], hc, cfg)
             o = chunked_attention(q, cl["ck"], cl["cv"], kind="bidir",
+                                  chunk_q=q.shape[1],
+                                  chunk_k=self.ctx.chunk_k,
                                   backend=self.ctx.prefill_backend)
             x = x + L.out_proj(bp["cross"], o)
         return ffn_fwd(bp, x, cfg, sig[1])[0]
@@ -770,7 +772,9 @@ class ChunkedPrefill:
         else:
             self._carry[li] = {"k": k, "v": v}
         o = chunked_attention(q, k, v, kind=_MASK[kind], window=window,
-                              q_offset=lo, backend=self.ctx.prefill_backend)
+                              q_offset=lo, chunk_q=self.ctx.chunk_q,
+                              chunk_k=self.ctx.chunk_k,
+                              backend=self.ctx.prefill_backend)
         return L.out_proj(p, o)
 
     def finish(self):

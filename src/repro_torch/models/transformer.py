@@ -22,9 +22,10 @@ forward; serving takes 1-D RoPE, as the reference's).
 :func:`check_supported` refuses a family or block kind the reference does
 not have.
 The training forward (:func:`forward_hidden`, :func:`lm_loss`) is
-differentiated by autograd; its attention is the plain version, as the
-reference's training path takes its jax attention, because the attention
-kernels have no backward.
+differentiated by autograd; its attention is ``chunked_attention``'s
+``"torch"`` backend, the chunked flash with its own backward at the
+context's ``chunk_q``/``chunk_k``, as the reference's training path takes
+its jax flash, because the attention kernels have no backward.
 """
 from __future__ import annotations
 
@@ -58,12 +59,15 @@ class RunCtx:
 
     ``prefill_backend``/``decode_backend``: ``"kernel"`` routes attention
     through the Hopper kernels (their plain versions on CPU tensors),
-    ``"torch"`` through the plain versions everywhere — the reference's
-    ``"pallas"``/``"jax"``.  They govern serving only: the training forward
-    (:func:`forward_hidden`) always takes the plain attention, as the
-    reference's does, since the kernels have no backward.  ``chunk_q``/
-    ``chunk_k`` mirror the reference's fields and are unused by the port:
-    the kernel picks its own tiles and the plain version takes none.
+    ``"torch"`` through the reference's jax algorithms on any device (the
+    chunked flash at prefill, the kernels' plain versions at decode) — the
+    reference's ``"pallas"``/``"jax"``.  They govern serving only: the
+    training forward (:func:`forward_hidden`) always takes ``"torch"``, as
+    the reference's does, since the kernels have no backward.
+    ``chunk_q``/``chunk_k`` are the query chunk and key block of
+    ``"torch"``'s chunked flash (a cross-attention takes all its queries in
+    one chunk, as the reference's); the kernel picks its own tiles and
+    ignores them.
     ``remat`` checkpoints each layer of the training forward;
     ``loss_chunk`` is the sequence chunk of :func:`lm_loss`.
     """
@@ -326,11 +330,12 @@ _MASK = {ATTN_FULL: "causal", ATTN_SWA: "swa", ATTN_LOCAL: "swa",
 ENCODER_SIG = (ATTN_FULL, "dense")
 
 
-def _attention_fwd(p, x, cfg: ModelConfig, eff_kind: str, window: int, rope,
-                   backend: str):
+def _attention_fwd(p, x, cfg: ModelConfig, ctx: RunCtx, eff_kind: str,
+                   window: int, rope, backend: str):
     q, k, v = L.qkv_proj(p, x, cfg)
     q, k = rotate(q, k, rope)
     o = chunked_attention(q, k, v, kind=_MASK[eff_kind], window=window,
+                          chunk_q=ctx.chunk_q, chunk_k=ctx.chunk_k,
                           backend=backend)
     return L.out_proj(p, o)
 
@@ -345,10 +350,13 @@ def cross_query(p, x, cfg: ModelConfig):
     return q.reshape(b, s, cfg.num_heads, cfg.resolved_head_dim)
 
 
-def cross_attention(p, x, ck, cv, cfg: ModelConfig, backend: str):
+def cross_attention(p, x, ck, cv, cfg: ModelConfig, ctx: RunCtx,
+                    backend: str):
     """Whisper's cross-attention: queries from ``x``, keys and values the
-    encoder's (ck, cv) (b, enc_s, kv, hd), no mask."""
+    encoder's (ck, cv) (b, enc_s, kv, hd), no mask; all queries in one
+    chunk, as the reference's."""
     o = chunked_attention(cross_query(p, x, cfg), ck, cv, kind="bidir",
+                          chunk_q=x.shape[1], chunk_k=ctx.chunk_k,
                           backend=backend)
     return L.out_proj(p, o)
 
@@ -362,11 +370,13 @@ def proj_cross(bp, enc_out, cfg: ModelConfig):
             torch.matmul(enc_out, bp["cross"]["wv"]).reshape(b, s, kv, hd))
 
 
-def block_fwd(p, x, cfg: ModelConfig, sig: Tuple[str, str], eff_kind: str,
-              window: int, rope, enc_out=None, backend: str = "torch"):
+def block_fwd(p, x, cfg: ModelConfig, ctx: RunCtx, sig: Tuple[str, str],
+              eff_kind: str, window: int, rope, enc_out=None,
+              backend: str = "torch"):
     """One block, training path. x (b, s, d) -> (x, aux loss f32).
     ``enc_out``: the encoder's output, for a block with cross-attention;
-    ``backend``: the attention's (the plain version unless serving)."""
+    ``backend``: the attention's (``"torch"``, the chunked flash, unless
+    serving)."""
     kind, ffn = sig
     h = _norm(p["norm1"], x, cfg)
     if kind == RECURRENT:
@@ -377,12 +387,12 @@ def block_fwd(p, x, cfg: ModelConfig, sig: Tuple[str, str], eff_kind: str,
     elif kind == SLSTM:
         x = x + xlstm_lib.slstm_block(p["slstm"], h, cfg)
     else:
-        x = x + _attention_fwd(p["attn"], h, cfg, eff_kind, window, rope,
-                               backend)
+        x = x + _attention_fwd(p["attn"], h, cfg, ctx, eff_kind, window,
+                               rope, backend)
     if enc_out is not None:
         hc = _norm(p["norm_cross"], x, cfg)
         x = x + cross_attention(p["cross"], hc, *proj_cross(p, enc_out, cfg),
-                                cfg, backend)
+                                cfg, ctx, backend)
     x, aux = ffn_fwd(p, x, cfg, ffn)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -402,9 +412,9 @@ def encode(params, feats, cfg: ModelConfig, ctx: RunCtx,
            backend: str = "torch"):
     """Whisper's encoder: feats (b, enc_s, d_model), the stubbed conv
     front end's output -> (b, enc_s, d_model) after its final norm.  Its
-    blocks attend bidirectionally on ``backend``: the plain version on the
-    training forward, ``ctx.prefill_backend`` when serving
-    (``decode.prefill_cross_kv``).  ``ctx.remat`` checkpoints each layer
+    blocks attend bidirectionally on ``backend``: ``"torch"`` (the chunked
+    flash at ``ctx``'s chunks) on the training forward,
+    ``ctx.prefill_backend`` when serving (``decode.prefill_cross_kv``).  ``ctx.remat`` checkpoints each layer
     where autograd is on."""
     x = feats.to(ctx.compute_dtype)
     pos = torch.arange(x.shape[1], device=x.device)
@@ -412,8 +422,8 @@ def encode(params, feats, cfg: ModelConfig, ctx: RunCtx,
     remat = ctx.remat and torch.is_grad_enabled()
 
     def body(x, bp):
-        return block_fwd(bp, x, cfg, ENCODER_SIG, "bidir", 0, (None, None),
-                         backend=backend)[0]
+        return block_fwd(bp, x, cfg, ctx, ENCODER_SIG, "bidir", 0,
+                         (None, None), backend=backend)[0]
 
     enc = params["encoder"]
     for bp in _unbind(enc["blocks"], cfg.encoder_layers):
@@ -457,8 +467,8 @@ def forward_hidden(params, tokens, cfg: ModelConfig, ctx: RunCtx,
     def unit_body(x, aux, unit_p):
         for j in range(u):
             kind, window = _effective(cfg, pattern, j)  # periodic: li % u == j
-            x, a = block_fwd(unit_p[f"p{j}"], x, cfg, sigs[j], kind, window,
-                             rope, enc_out)
+            x, a = block_fwd(unit_p[f"p{j}"], x, cfg, ctx, sigs[j], kind,
+                             window, rope, enc_out)
             aux = aux + a
         return x, aux
 
@@ -469,8 +479,8 @@ def forward_hidden(params, tokens, cfg: ModelConfig, ctx: RunCtx,
     for i in range(rem):
         li = u * reps + i
         kind, window = _effective(cfg, pattern, li)
-        x, a = block_fwd(params["rest"][f"l{li}"], x, cfg, sigs[li], kind,
-                         window, rope, enc_out)
+        x, a = block_fwd(params["rest"][f"l{li}"], x, cfg, ctx, sigs[li],
+                         kind, window, rope, enc_out)
         aux = aux + a
     x = _norm(params["final_norm"], x, cfg)
     return x, aux

@@ -7,8 +7,10 @@
   the streamdata slice: ``streamdata``, ``models/cnn.py``,
   ``serve/control.py``; the training launcher slice: ``train/step.py``,
   ``checkpoint``, ``launch/train.py``, ``obs/profile.py``,
-  ``obs/regress.py``) and of ``chip_smoke.py`` finds no import of ``jax``
-  or of the ``repro`` package.
+  ``obs/regress.py``; the training attention slice: ``launch/mesh.py``)
+  and of ``chip_smoke.py`` finds no import of ``jax`` or of the ``repro``
+  package.  The same scan over the examples' counterparts,
+  ``examples/*_torch.py``, also finds no import of ``benchmarks``.
 * Every entry point runs on ``cuda`` unless asked for the CPU, and raises
   where there is no card (these tests skip on a machine that has one);
   every kernel wrapper runs its plain version for CPU tensors only.
@@ -27,6 +29,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
+EXAMPLES = ("quickstart", "train_e2e", "serve_batched", "scadles_streaming",
+            "fleet_churn")
+EXAMPLE_FILES = sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _imported_roots(source: str):
@@ -81,6 +86,21 @@ def test_scan_covers_the_moe_and_hybrid_slice():
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_port_imports_no_jax_and_no_repro(path):
     bad = sorted(set(_imported_roots(path.read_text())) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_covers_every_example_counterpart():
+    assert [p.name for p in EXAMPLE_FILES] == sorted(
+        f"{name}_torch.py" for name in EXAMPLES)
+    for name in EXAMPLES:
+        assert (ROOT / "examples" / f"{name}.py").exists(), name
+
+
+@pytest.mark.parametrize("path", EXAMPLE_FILES,
+                         ids=[p.name for p in EXAMPLE_FILES])
+def test_example_counterparts_import_no_jax_repro_or_benchmarks(path):
+    bad = sorted(set(_imported_roots(path.read_text()))
+                 & set(FORBIDDEN + ("benchmarks",)))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
@@ -341,3 +361,42 @@ def test_configs_match_reference(arch):
         assert tc.param_count() == jc.param_count()
         assert (tc.param_count(active_only=True)
                 == jc.param_count(active_only=True))
+
+
+def test_scan_covers_the_training_attention_slice():
+    scanned = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in PORT_FILES[:-1]}
+    assert {"launch/mesh.py", "models/attention.py",
+            "core/weighted_agg.py"} <= scanned
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_default_to_cuda(no_card, name, monkeypatch, tmp_path,
+                                  capsys):
+    """Each example's counterpart runs on the card unless given ``--device
+    cpu``, and raises here."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mod.main([])
+
+
+def test_meshes_default_to_cuda(no_card, tmp_path):
+    """``make_test_mesh`` names CUDA unless asked for the CPU, and raises
+    here before it builds anything."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="cuda"):
+            make_test_mesh((1, 1))
+        mesh = make_test_mesh((1, 1), device="cpu")
+        assert mesh.device_type == "cpu" and mesh.mesh_dim_names == (
+            "data", "model")
+    finally:
+        dist.destroy_process_group()
