@@ -183,6 +183,18 @@ package.  Phases, each fatal on failure (exit code 1, no result line):
    over it equals ``chunked_attention(static_offset=False)`` bit for bit,
    output and gradients, causal and swa; ``psum_weighted`` returns the
    gradient and the rate;
+8j. (after 8h) the sharded training step: on a one-rank NCCL group's
+   (1, 1) ("data", "model") mesh, ``make_plan`` -> ``make_run_ctx`` ->
+   ``distribute`` of phase 8's qwen2-0.5b params (full width and depth,
+   f32) and 8 x 256 batch with uniform sample weights ->
+   ``make_train_step(..., grad_shardings=named(...))`` with momentum SGD
+   on ``fused_sgdm``, two steps at ``n_micro`` 1 and 2 with the counters
+   set to 0 just before and read just after (one ``fused_sgdm`` per leaf
+   a step, on its local shard, nothing else), every output leaf a DTensor
+   with its spec's placements, params, momentum, loss and grad norm held
+   against the same steps without a mesh at TRAIN_TOL; then one step of
+   each in turns (unsharded, sharded, sharded, unsharded) with its peak
+   memory, and the launches a step under torch.profiler;
 8i. the five ``examples/*_torch.py``, each in a fresh interpreter with
    ``PYTHONPATH=src`` in a temporary working directory: quickstart (the
    loss falls), train_e2e at its default and ``--full --steps 5``
@@ -246,6 +258,7 @@ import dataclasses
 import gc
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -426,6 +439,16 @@ EXAMPLES = {"card": (("quickstart", "quickstart", []),
             "ckpt": {"train_e2e": "xlstm-125m-reduced.npz",
                      "train_e2e --full": "xlstm-125m.npz"},
             "acc_tol": 1e-3, "timeout_s": 420}
+# phase 8j: the sharded training step, qwen2-0.5b at full width and depth
+# (phase 8's params and batch, uniform sample weights) on a one-rank NCCL
+# group's (1, 1) mesh, `steps` steps at n_micro 1 and 2, against the same
+# steps without a mesh at TRAIN_TOL (every collective is the identity on one
+# rank), then timed in turns with the unsharded step (`turn_steps` steps a
+# turn after one untimed step of each).  No two-rank phase: on
+# one card NCCL refuses two ranks, and gloo's all-gather of CUDA tensors
+# through the functional collectives DTensor uses ends the process (SIGSEGV,
+# torch 2.11; PERF.md §7)
+SHARDED = {"steps": 2, "turn_steps": 3}
 KERNEL_SOURCES = ["flash_attention", "flash_decode", "block_topk",
                   "fused_sgdm", "scatter_agg"]
 KERNEL_NAMES = ("flash_attention", "flash_decode", "flash_decode_paged",
@@ -2853,6 +2876,175 @@ def mesh_path(torch, card):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 8j: the sharded training step
+
+
+def _whole(x):
+    """A DTensor's global value (a plain tensor as it is)."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _steps(torch, step_fn, params, state, batch, steps):
+    """``steps`` steps from (params, state) -> (params, state, metrics as
+    floats by step, synchronised wall ms by step)."""
+    ms, walls = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch, i)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        ms.append({k: float(_whole(v)) for k, v in m.items()})
+    return params, state, ms, walls
+
+
+def sharded_step_path(torch, mods, card):
+    """Phase 8j: ``make_train_step`` on a (1, 1) mesh of a one-rank
+    NCCL group against the unsharded step, counted, placed, timed in
+    turns.  Returns the sharded n_micro 1 run's launch counts."""
+    import torch.distributed as dist
+    from repro_torch.dist import (batch_specs, distribute, make_plan,
+                                  make_run_ctx, named, param_specs)
+    from repro_torch.dist.sharding import placements_of
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import leaves
+    steps = SHARDED["steps"]
+    log(f"# phase 8j: the sharded make_train_step, qwen2-0.5b full "
+        f"width and depth, batch {TRAIN['batch']} x {TRAIN['seq']}, "
+        "uniform sample weights, momentum SGD (fused_sgdm), a one-rank NCCL "
+        "group's (1, 1) mesh")
+    cfg, ctx, params, batch = train_setup(torch)
+    b = TRAIN["batch"]
+    batch["sample_weights"] = torch.full((b,), 1.0 / b, device=DEVICE)
+    n_leaves = len(leaves(params))
+    init, update = make_optimizer("sgdm", momentum=TRAIN["momentum"],
+                                  backend="kernel")
+
+    def lr(i):
+        return TRAIN["lr"]
+
+    launched = None
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"))
+        plan = make_plan(mesh)
+        sctx = make_run_ctx(cfg, plan, compute_dtype=torch.float32,
+                            param_dtype=torch.float32, remat=ctx.remat,
+                            chunk_q=ctx.chunk_q, chunk_k=ctx.chunk_k,
+                            loss_chunk=ctx.loss_chunk, device=DEVICE)
+        specs = param_specs(params, cfg, plan)
+        pd = distribute(params, specs, mesh)
+        bd = distribute(batch, batch_specs(cfg, plan, batch), mesh)
+        shard = named(params, specs, mesh)
+        log(f"  mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on "
+            f"{mesh.device_type} ({dist.get_backend()}); attn_mode "
+            f"{sctx.attn_mode}")
+        fns = {}
+        for n_micro in (1, 2):
+            fns[n_micro] = (
+                make_train_step(cfg, ctx, update, lr, n_micro=n_micro),
+                make_train_step(cfg, sctx, update, lr, n_micro=n_micro,
+                                grad_shardings=shard))
+            plain_fn, sharded_fn = fns[n_micro]
+            pu, su, mu, _ = _steps(torch, plain_fn, params, init(params),
+                                   batch, steps)
+            reset(mods)
+            ps, ss, msh, walls = _steps(torch, sharded_fn, pd, init(pd), bd,
+                                        steps)
+            got = counts(mods)
+            want = expect(fused_sgdm=steps * n_leaves)
+            if n_micro == 1:
+                launched = got
+            wrong = [i for i, (t, spec) in enumerate(zip(
+                leaves(ps) + leaves(ss["mom"]), 2 * leaves(specs)))
+                if not (hasattr(t, "placements") and tuple(t.placements)
+                        == placements_of(mesh, spec))]
+            d_p = max(max_err(_whole(x), y) for x, y in
+                      zip(leaves(ps), leaves(pu)))
+            d_m = max(max_err(_whole(x), y) for x, y in
+                      zip(leaves(ss["mom"]), leaves(su["mom"])))
+            same = all(torch.equal(_whole(x), y) for x, y in
+                       zip(leaves(ps) + leaves(ss["mom"]),
+                           leaves(pu) + leaves(su["mom"])))
+            log(f"  n_micro {n_micro}: launches over {steps} sharded steps "
+                f"{got}; step walls {', '.join(f'{w:.1f}' for w in walls)} "
+                f"ms; {len(wrong)} of {2 * n_leaves} output leaves off "
+                "their spec's placements")
+            for i, (a, c) in enumerate(zip(msh, mu)):
+                log(f"    step {i}: loss {a['loss']:.9g} (unsharded "
+                    f"{c['loss']:.9g}, diff {abs(a['loss'] - c['loss']):.3e}"
+                    f"), grad_norm {a['grad_norm']:.9g} (unsharded "
+                    f"{c['grad_norm']:.9g}, diff "
+                    f"{abs(a['grad_norm'] - c['grad_norm']):.3e})")
+            log(f"    after {steps} steps: params max |diff| {d_p:.3e}, "
+                f"momentum {d_m:.3e} (bound {TRAIN_TOL['param_abs']:g}); "
+                f"bit-identical: {same}  [{card}]")
+            if got != want:
+                fail(f"phase 8j: the sharded step launched {got}, expected "
+                     f"{want}")
+            if wrong:
+                fail(f"phase 8j: output leaves {wrong} lost their placements")
+            if not (d_p <= TRAIN_TOL["param_abs"]
+                    and d_m <= TRAIN_TOL["param_abs"]
+                    and all(abs(a["loss"] - c["loss"])
+                            <= TRAIN_TOL["loss_rel"] * abs(c["loss"])
+                            and abs(a["grad_norm"] - c["grad_norm"])
+                            <= TRAIN_TOL["loss_rel"] * abs(c["grad_norm"])
+                            for a, c in zip(msh, mu))):
+                fail(f"phase 8j: the sharded step at n_micro {n_micro} "
+                     "parts from the unsharded one")
+            del pu, su, ps, ss
+        time_sharded_step(torch, fns[1], params, batch, pd, bd, init, card)
+    finally:
+        dist.destroy_process_group()
+    del params, pd
+    torch.cuda.empty_cache()
+    return launched
+
+
+def time_sharded_step(torch, fns, params, batch, pd, bd, init, card):
+    """One untimed step of each side, then ``SHARDED["turn_steps"]`` steps
+    without the mesh and on it, in turns (unsharded, sharded, sharded,
+    unsharded), each synchronised, with its peak memory; the ratio is of
+    the warm medians.  Then the launches a step of each under
+    torch.profiler."""
+    plain_fn, sharded_fn = fns
+    runs = {"unsharded": (plain_fn, params, batch),
+            "sharded": (sharded_fn, pd, bd)}
+    for fn, p, bt_ in runs.values():
+        _steps(torch, fn, p, init(p), bt_, 1)
+    walls = {k: [] for k in runs}
+    peaks = {k: [] for k in runs}
+    for label in ("unsharded", "sharded", "sharded", "unsharded"):
+        fn, p, bt_ = runs[label]
+        state = init(p)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, _, w = _steps(torch, fn, p, state, bt_, SHARDED["turn_steps"])
+        walls[label] += w
+        peaks[label].append(torch.cuda.max_memory_allocated() / 2**30)
+        del state
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"  step wall in turns (unsharded, sharded, sharded, unsharded; "
+        f"{SHARDED['turn_steps']} steps a turn after one untimed step "
+        f"each): unsharded {', '.join(f'{w:.1f}' for w in walls['unsharded'])}"
+        f" ms, sharded {', '.join(f'{w:.1f}' for w in walls['sharded'])} ms;"
+        f" medians {med['unsharded']:.1f} / {med['sharded']:.1f} ms, ratio "
+        f"{med['sharded'] / med['unsharded']:.3f}; peak "
+        f"{max(peaks['unsharded']):.2f} / {max(peaks['sharded']):.2f} GiB "
+        f"[{card}]")
+    for label, (fn, p, bt_) in runs.items():
+        state = init(p)
+        n = launches_in(torch, lambda: fn(p, state, bt_, 0))
+        log(f"  {label}: {n if n else 'not measured'} launches a step "
+            "(torch.profiler)")
+        del state
+
+
 # the example run in a fresh interpreter as __main__, then the wrappers'
 # launch counts on a line of their own
 _COUNTED_RUN = """
@@ -3790,6 +3982,8 @@ def main() -> None:
     training_attention_path(torch, mods, card)
     long_launcher_path(torch, mods, card)
     mesh_path(torch, card)
+    paths["8j sharded make_train_step"] = sharded_step_path(torch, mods,
+                                                            card)
     paths["8i serve_batched_torch.py"] = examples_path(torch, mods, card)
     times.update(time_kernels(torch, fa, fd))
     zoo_times = time_zoo_kernels(

@@ -10,6 +10,8 @@ missing, so nothing quietly moves to the CPU.
 """
 from __future__ import annotations
 
+import sys
+
 import torch
 
 
@@ -22,3 +24,10 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {str(dev)!r} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run on the CPU")
     return dev
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``torch.distributed.tensor.DTensor``.  Until that
+    module is imported no DTensor can exist, so the check imports nothing."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)

@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from repro_torch import is_dtensor
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import DTYPES
 
@@ -147,7 +148,17 @@ def fused_sgdm(p, m, g, lr, momentum: float = 0.9,
     p, g: same shape and dtype (float32 or bfloat16); m: float32; lr: a
     number or a 0-d float32 tensor (on the card, for a CUDA launch).  The
     kernel on CUDA tensors, the plain version on CPU tensors.
+
+    ``DTensor``s p, m, g with equal placements on one mesh update their
+    local shards (the update is elementwise, so a rank's update is the
+    global one restricted to its shard) and come back with those
+    placements; unequal placements, or ``DTensor``s beside plain tensors,
+    raise.
     """
+    dts = [is_dtensor(t) for t in (p, m, g)]
+    if any(dts):
+        return _fused_sgdm_sharded(p, m, g, lr, momentum, weight_decay,
+                                   all(dts))
     if p.device.type == "cpu":
         return fused_sgdm_ref(p, m, g, lr, momentum, weight_decay)
     if p.device.type != "cuda":
@@ -180,3 +191,25 @@ def fused_sgdm(p, m, g, lr, momentum: float = 0.9,
     _build.check(lib, err, "fused_sgdm")
     launches["fused_sgdm"] += 1
     return p_out, m_out
+
+
+def _fused_sgdm_sharded(p, m, g, lr, momentum, weight_decay, all_dt):
+    """:func:`fused_sgdm` on the local shards of ``DTensor``s p, m, g; the
+    results rewrapped with p's mesh and placements."""
+    from torch.distributed.tensor import DTensor
+    if not all_dt:
+        raise TypeError("fused_sgdm: p, m and g must all be DTensors or all "
+                        "plain tensors")
+    if not (p.device_mesh == m.device_mesh == g.device_mesh
+            and tuple(p.placements) == tuple(m.placements)
+            == tuple(g.placements)):
+        raise ValueError(f"fused_sgdm: placements p {p.placements}, m "
+                         f"{m.placements}, g {g.placements} (or meshes) "
+                         "differ")
+    if is_dtensor(lr):
+        lr = lr.to_local()
+    p_out, m_out = fused_sgdm(*(t.to_local().contiguous() for t in (p, m, g)),
+                              lr, momentum, weight_decay)
+    return tuple(DTensor.from_local(t, p.device_mesh, p.placements,
+                                    shape=p.shape, stride=p.stride())
+                 for t in (p_out, m_out))

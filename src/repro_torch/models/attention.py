@@ -236,8 +236,11 @@ class _GatherSeq(torch.autograd.Function):
     """All-gather of a sequence shard (b, s_local, ...) over ``group`` along
     dim 1, with autograd.  The backward sums the gathered gradient over the
     group's ranks and keeps this rank's slice: the transpose of
-    ``jax.lax.all_gather(tiled=True)`` under ``shard_map``.  gloo has no
-    reduce-scatter, so it is an all-reduce and a slice."""
+    ``jax.lax.all_gather(tiled=True)`` under ``shard_map``, done as an
+    all-reduce and a slice.  A reduce-scatter would move fewer bytes, and
+    gloo runs ``reduce_scatter_tensor`` (torch 2.13 on CPU tensors; 2.11
+    on CPU and CUDA tensors), but the all-reduce form is what
+    ``tests/test_torch_dist_attention.py`` pins, so it stays."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -271,10 +274,9 @@ def context_parallel_attention(q, k, v, mesh, cp_axis: str, *, kind: str,
     flash's traced offset (mask only, no block skipping), with ``chunk_q =
     min(chunk_q, s_local)``.  -> (b, s_local, h, hd).
 
-    The reference's ``RunCtx`` fields that route a model's attention here
-    (``attn_mode="context"``, ``mesh``, ``tp_axis``) and that dispatch in
-    ``_attention_fwd`` come with the port's sharding rules; until then a
-    caller calls this directly.
+    A model's attention comes here under ``RunCtx(attn_mode="context")`` on
+    a mesh (``models/transformer.py::_attention_fwd``), with each rank's
+    local shards of the ``DTensor`` q/k/v.
     """
     group = mesh.get_group(cp_axis)
     s_local = q.shape[1]

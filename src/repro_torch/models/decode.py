@@ -117,11 +117,13 @@ def _cross_cache(cfg: ModelConfig, batch: int, dtype, device, lead=()):
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, ctx: RunCtx,
-               pattern: Optional[Sequence[str]] = None):
-    """Full decode cache dict, mirroring the stack plan layout."""
+               pattern: Optional[Sequence[str]] = None, as_spec: bool = False):
+    """Full decode cache dict, mirroring the stack plan layout.  ``as_spec``
+    gives the same tree on the ``meta`` device: shapes and dtypes, no
+    storage (the reference's ``ShapeDtypeStruct`` tree)."""
     pattern = tuple(pattern) if pattern is not None else cfg.pattern
     check_supported(cfg, pattern)
-    dev = resolve_device(ctx.device)
+    dev = torch.device("meta") if as_spec else resolve_device(ctx.device)
     u, reps, rem = stack_plan(layer_sigs(cfg))
     cross = cfg.encoder_layers > 0
     cache: Dict[str, Any] = {"unit": {}, "rest": {}}

@@ -14,7 +14,64 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch import is_dtensor
 from repro_torch.configs.base import ModelConfig
+
+# ---------------------------------------------------------------------------
+# products
+
+
+def dense(x, w):
+    """x (..., d_in) @ w (d_in, d_out).  For a ``DTensor`` x of 3 or more
+    dims the product folds the leading dims into rows, which DTensor (torch
+    2.11) cannot do when a dim past the first is sharded: such dims are
+    gathered first (the sequence, between blocks), and the output's
+    gradient is pinned to the output's layout for the fold's backward."""
+    if not is_dtensor(x) or x.ndim < 3:
+        return torch.matmul(x, w)
+    from torch.distributed.tensor import Replicate
+    pl = [Replicate() if p.is_shard() and 0 < p.dim < x.ndim - 1 else p
+          for p in x.placements]
+    x = x.redistribute(x.device_mesh, pl)
+    out = torch.matmul(x, w)
+    return out.redistribute(out.device_mesh, out.placements)
+
+
+def beside(x, *ts):
+    """Plain tensors ``ts`` made to meet ``x``: replicated DTensors on its
+    mesh where ``x`` is a ``DTensor`` (DTensor refuses mixed operands, in
+    the backward too), as they are otherwise.  None stays None."""
+    if not is_dtensor(x):
+        return ts
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = x.device_mesh
+    return tuple(t if t is None or is_dtensor(t) else
+                 DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim)
+                 for t in ts)
+
+
+def from_shards(local, mesh, placements, grad_placements):
+    """``DTensor.from_local(local, mesh, placements)`` whose backward hands
+    ``local`` the gradient placed as ``grad_placements`` (torch 2.11's
+    ``from_local`` takes no such argument).  A partial result of a local
+    computation needs it: every rank's share then gets the whole
+    gradient, where the default would split it over the ranks."""
+    return _FromShards.apply(local, mesh, tuple(placements),
+                             tuple(grad_placements))
+
+
+class _FromShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, mesh, placements, grad_placements):
+        from torch.distributed.tensor import DTensor
+        ctx.mesh, ctx.grad_placements = mesh, grad_placements
+        return DTensor.from_local(local, mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad.redistribute(ctx.mesh, ctx.grad_placements).to_local(),
+                None, None, None)
+
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -116,10 +173,15 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype,
     }
 
 
-def mlp(params, x):
-    g = torch.matmul(x, params["w_gate"])
-    u = torch.matmul(x, params["w_up"])
-    return torch.matmul(F.silu(g) * u, params["w_down"])
+def mlp(params, x, ctx=None):
+    g = dense(x, params["w_gate"])
+    u = dense(x, params["w_up"])
+    h = F.silu(g) * u
+    if ctx is not None:
+        # pin the FFN hidden to (batch, seq-local, ff@tp) on a mesh: keeps
+        # the weight gradients' products sharded on d_ff
+        h = ctx.constrain(h, (ctx.dp_axes, None, ctx.tp_axis))
+    return dense(h, params["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -145,19 +207,37 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
 
 def qkv_proj(params, x, cfg: ModelConfig):
     """x (b, s, d) -> q (b, s, h, hd), k/v (b, s, kv, hd)."""
-    b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = torch.matmul(x, params["wq"])
-    k = torch.matmul(x, params["wk"])
-    v = torch.matmul(x, params["wv"])
+    q = dense(x, params["wq"])
+    k = dense(x, params["wk"])
+    v = dense(x, params["wv"])
     if cfg.qkv_bias:
         q = q + params["bq"].to(q.dtype)
         k = k + params["bk"].to(k.dtype)
         v = v + params["bv"].to(v.dtype)
-    return (q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd),
-            v.reshape(b, s, kv, hd))
+    return (split_heads(q, h, hd), split_heads(k, kv, hd),
+            split_heads(v, kv, hd))
+
+
+def split_heads(t, n: int, hd: int):
+    """(b, s, n * hd) -> (b, s, n, hd).  A ``DTensor`` whose last dim is
+    sharded over a mesh dim that does not divide the n heads is gathered on
+    that mesh dim first (DTensor cannot split an uneven shard)."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+        sizes = t.device_mesh.shape
+        pl = [Replicate() if p.is_shard(t.ndim - 1) and n % sizes[i] else p
+              for i, p in enumerate(t.placements)]
+        if pl != list(t.placements):
+            t = t.redistribute(t.device_mesh, pl)
+    return t.reshape(*t.shape[:-1], n, hd)
 
 
 def out_proj(params, attn_out):
     b, s, h, hd = attn_out.shape
-    return torch.matmul(attn_out.reshape(b, s, h * hd), params["wo"])
+    flat = attn_out.reshape(b, s, h * hd)
+    if is_dtensor(flat):
+        # pin the merged heads' gradient to their own layout: the backward
+        # of the merge cannot split a dim sharded unevenly over the heads
+        flat = flat.redistribute(flat.device_mesh, flat.placements)
+    return dense(flat, params["wo"])

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense, dense_init
 
 _C = 8.0
 _CONV_W = 4
@@ -61,9 +61,9 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig, dtype,
 
 def _gates(params, u):
     """u (..., r) -> log_a (f32), gated input (f32)."""
-    ra = torch.sigmoid(torch.matmul(u, params["w_a"]).float() + params["b_a"])
+    ra = torch.sigmoid(dense(u, params["w_a"]).float() + params["b_a"])
     log_a = -_C * F.softplus(params["lam"]) * ra
-    gi = torch.sigmoid(torch.matmul(u, params["w_i"]).float() + params["b_i"])
+    gi = torch.sigmoid(dense(u, params["w_i"]).float() + params["b_i"])
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     return log_a, beta * gi * u.float()
 
@@ -72,9 +72,7 @@ def _causal_conv(params, u, state=None):
     """Depthwise causal conv, width 4. u (b, s, r); state (b, 3, r) or None.
     -> (out (b, s, r), the last 3 inputs as the next state)."""
     b, s, r = u.shape
-    pad = (state if state is not None
-           else torch.zeros((b, _CONV_W - 1, r), dtype=u.dtype,
-                            device=u.device))
+    pad = state if state is not None else u.new_zeros((b, _CONV_W - 1, r))
     up = torch.cat([pad.to(u.dtype), u], dim=1)
     out = up[:, 0:s] * params["conv_w"][0]
     for i in range(1, _CONV_W):
@@ -107,8 +105,8 @@ def rglru_block(params, x, h0=None, conv0=None, return_state: bool = False,
     """
     dt = x.dtype
     b, s, _ = x.shape
-    rec = torch.matmul(x, params["w_rec_in"])
-    gate = F.gelu(torch.matmul(x, params["w_gate_in"]), approximate="tanh")
+    rec = dense(x, params["w_rec_in"])
+    gate = F.gelu(dense(x, params["w_gate_in"]), approximate="tanh")
     rec, conv_state = _causal_conv(params, rec, conv0)
     log_a, x_in = _gates(params, rec)                 # (b, s, r) f32
     a = torch.exp(log_a)
@@ -118,7 +116,7 @@ def rglru_block(params, x, h0=None, conv0=None, return_state: bool = False,
     if s % chunk:
         chunk = s
     h_prev = (h0 if h0 is not None
-              else torch.zeros((b, r), dtype=torch.float32, device=x.device))
+              else x.new_zeros((b, r), dtype=torch.float32))
     hs = []
     for lo in range(0, s, chunk):
         a_i, x_i = a[:, lo:lo + chunk], x_in[:, lo:lo + chunk]
@@ -128,7 +126,7 @@ def rglru_block(params, x, h0=None, conv0=None, return_state: bool = False,
         h_prev = h[:, -1]
         hs.append(h)
     h = torch.cat(hs, dim=1) if len(hs) > 1 else hs[0]
-    out = torch.matmul(h.to(dt) * gate, params["w_out"])
+    out = dense(h.to(dt) * gate, params["w_out"])
     if return_state:
         return out, (h_prev, conv_state)
     return out
@@ -138,13 +136,13 @@ def rglru_decode_step(params, x, h, conv_state):
     """One token. x (b, 1, d); h (b, r) f32; conv_state (b, 3, r).
     -> (y (b, 1, d), new h, new conv state)."""
     dt = x.dtype
-    rec = torch.matmul(x, params["w_rec_in"])
-    gate = F.gelu(torch.matmul(x, params["w_gate_in"]), approximate="tanh")
+    rec = dense(x, params["w_rec_in"])
+    gate = F.gelu(dense(x, params["w_gate_in"]), approximate="tanh")
     rec, conv_state = _causal_conv(params, rec, conv_state)
     log_a, x_in = _gates(params, rec)
     h = torch.exp(log_a[:, 0]) * h + x_in[:, 0]
     y = h[:, None].to(dt) * gate
-    return torch.matmul(y, params["w_out"]), h, conv_state
+    return dense(y, params["w_out"]), h, conv_state
 
 
 def state_shapes(cfg: ModelConfig, batch: int):

@@ -33,16 +33,18 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import is_dtensor, resolve_device
 from repro_torch.configs.base import (ATTN_FULL, ATTN_LOCAL, ATTN_SWA, MLSTM,
                                       RECURRENT, SLSTM, ModelConfig)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import xlstm as xlstm_lib
-from repro_torch.models.attention import chunked_attention
+from repro_torch.models.attention import (chunked_attention,
+                                          context_parallel_attention)
 from repro_torch.tree import leaves
 
 ATTN_KINDS = (ATTN_FULL, ATTN_SWA, ATTN_LOCAL)
@@ -70,6 +72,15 @@ class RunCtx:
     ignores them.
     ``remat`` checkpoints each layer of the training forward;
     ``loss_chunk`` is the sequence chunk of :func:`lm_loss`.
+
+    ``mesh`` (a ``DeviceMesh``; ``dist/sharding.py::make_run_ctx`` wires
+    it) runs the training forward on ``DTensor``s: ``tp_axis`` and
+    ``dp_axes`` name its tensor and data axes, ``attn_mode`` is ``local``,
+    ``megatron`` (heads over ``tp_axis``) or ``context`` (the sequence over
+    ``tp_axis``, K/V gathered), and ``seq_sharded`` says the batch's
+    sequence is sharded (context mode).  Each path forks on its operands:
+    ``DTensor``s take the mesh's, plain tensors the single-device one
+    (which ``constrain`` leaves unchanged).
     """
     chunk_q: int = 512
     chunk_k: int = 512
@@ -80,6 +91,38 @@ class RunCtx:
     decode_backend: str = "kernel"
     prefill_backend: str = "kernel"
     device: str = "cuda"
+    mesh: Any = None
+    tp_axis: str = "model"
+    dp_axes: Tuple[str, ...] = ("data",)
+    attn_mode: str = "local"        # local | megatron | context
+    seq_sharded: bool = False       # context-parallel activations (b, s@tp, d)
+
+    def constrain(self, x, spec_axes: Tuple[Any, ...]):
+        """Redistribute the ``DTensor`` ``x`` to the placements of
+        ``spec_axes`` (one entry per dim: an axis name, a tuple of names or
+        None), dropping axes that do not divide their dim; its gradient is
+        brought back to x's placements.  A plain tensor, or any tensor
+        without a mesh, comes back unchanged.
+
+        Sharding propagation can drop the batch axis (replicating all
+        compute over ``data``); these pins hold the intended layout
+        (DESIGN.md §5).
+        """
+        if self.mesh is None or not is_dtensor(x):
+            return x
+        from repro_torch.dist.sharding import placements_of, resolve_axes
+        # always through redistribute, even to the same placements: its
+        # backward brings the gradient to x's layout, as the transpose of
+        # jax's sharding constraint pins the cotangent
+        return x.redistribute(self.mesh, placements_of(
+            self.mesh, resolve_axes(self.mesh, x.shape, spec_axes)))
+
+    def act(self, x):
+        """Pin (b, s, d) activations: batch over the data axes, sequence
+        over ``tp_axis`` (Megatron-style sequence parallelism: residuals
+        between blocks shard over tp; blocks gather the sequence inside).
+        Dims that do not divide stay whole (decode's s = 1)."""
+        return self.constrain(x, (self.dp_axes, self.tp_axis, None))
 
 
 # ---------------------------------------------------------------------------
@@ -175,15 +218,16 @@ def init_block(gen, cfg: ModelConfig, sig: Tuple[str, str], dtype,
     return p
 
 
-def ffn_fwd(p, x, cfg: ModelConfig, ffn: str):
-    """The block's FFN half: x + FFN(norm2(x)) -> (x, aux loss or None)."""
+def ffn_fwd(p, x, cfg: ModelConfig, ffn: str, ctx: Optional[RunCtx] = None):
+    """The block's FFN half: x + FFN(norm2(x)) -> (x, aux loss or None);
+    ``ctx`` pins the FFN's activations on its mesh."""
     if ffn == "none":
         return x, None
     h = _norm(p["norm2"], x, cfg)
     if ffn == "moe":
-        y, aux = moe_lib.moe_ffn(p["moe"], h, cfg)
+        y, aux = moe_lib.moe_ffn(p["moe"], h, cfg, ctx)
         return x + y, aux
-    return x + L.mlp(p["mlp"], h), None
+    return x + L.mlp(p["mlp"], h, ctx), None
 
 
 def sinusoidal(positions, d: int):
@@ -200,14 +244,18 @@ def embed(params, tokens, cfg: ModelConfig, ctx: "RunCtx", positions=None):
     """Token embeddings in the compute dtype; the hybrid family scales them
     by sqrt(d_model), as gemma does, and the audio family adds the
     sinusoidal positions of ``positions`` (broadcast against (b, s))."""
-    x = params["embed"][tokens].to(ctx.compute_dtype)
+    # the embedding op, not an index: DTensor (torch 2.11) has no working
+    # strategy for the index's backward
+    x = F.embedding(ctx.constrain(tokens, (ctx.dp_axes, None)),
+                    params["embed"]).to(ctx.compute_dtype)
     if cfg.family == "hybrid":
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     if cfg.family == "audio":
         if positions is None:
             raise ValueError(f"{cfg.name}: the audio family's embedding "
                              "needs positions")
-        x = x + sinusoidal(positions, cfg.d_model).to(x.dtype)
+        pos, = L.beside(x, sinusoidal(positions, cfg.d_model).to(x.dtype))
+        x = x + pos
     return x
 
 
@@ -334,20 +382,86 @@ def _attention_fwd(p, x, cfg: ModelConfig, ctx: RunCtx, eff_kind: str,
                    window: int, rope, backend: str):
     q, k, v = L.qkv_proj(p, x, cfg)
     q, k = rotate(q, k, rope)
-    o = chunked_attention(q, k, v, kind=_MASK[eff_kind], window=window,
-                          chunk_q=ctx.chunk_q, chunk_k=ctx.chunk_k,
-                          backend=backend)
+    kind = _MASK[eff_kind]
+    if not is_dtensor(q):
+        o = chunked_attention(q, k, v, kind=kind, window=window,
+                              chunk_q=ctx.chunk_q, chunk_k=ctx.chunk_k,
+                              backend=backend)
+    elif ctx.attn_mode == "context" and x.shape[1] > 1:
+        o = _context_attention(q, k, v, ctx, kind, window)
+    else:
+        o = _head_sharded_attention(q, k, v, ctx, kind, window, ctx.chunk_q,
+                                    backend)
     return L.out_proj(p, o)
+
+
+def _partial_grads(x, used_by):
+    """Gradient placements of the local shard of ``x`` when a computation
+    that only covers ``used_by``'s shard reads it: ``Partial`` on each mesh
+    dim where ``used_by`` is sharded and ``x`` replicated (each rank then
+    holds its share of the gradient), ``x``'s own placement elsewhere."""
+    from torch.distributed.tensor import Partial
+    return [Partial() if pu.is_shard() and px.is_replicate() else px
+            for px, pu in zip(x.placements, used_by.placements)]
+
+
+def _head_sharded_attention(q, k, v, ctx: RunCtx, kind: str, window: int,
+                            chunk_q: int, backend: str):
+    """Megatron attention on the mesh: queries sharded on heads over
+    ``tp_axis`` (the sequence gathered), K/V replicated over it; each rank
+    runs the chunked flash, an autograd Function DTensor cannot shard, on
+    its local heads and the KV heads they read.  -> o (b, s, h, hd) with
+    q's placements."""
+    from torch.distributed.tensor import DTensor
+    dp, tp = ctx.dp_axes, ctx.tp_axis
+    q = ctx.constrain(q, (dp, None, tp, None))
+    k = ctx.constrain(k, (dp, None, None, None))
+    v = ctx.constrain(v, (dp, None, None, None))
+    h, kvh = q.shape[2], k.shape[2]
+    g = h // kvh
+    ql = q.to_local()
+    hl = ql.shape[2]
+    h0 = q.device_mesh.get_local_rank(tp) * hl if hl < h else 0
+    kl = k.to_local(grad_placements=_partial_grads(k, q))
+    vl = v.to_local(grad_placements=_partial_grads(v, q))
+    if h0 % g == 0 and hl % g == 0:
+        # whole groups: their KV heads, in order
+        kl, vl = (t[:, :, h0 // g:(h0 + hl) // g] for t in (kl, vl))
+    else:
+        # a group split over ranks: one KV head for each query head
+        idx = torch.div(torch.arange(h0, h0 + hl, device=kl.device), g,
+                        rounding_mode="floor")
+        kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+    o = chunked_attention(ql, kl, vl, kind=kind, window=window,
+                          chunk_q=chunk_q, chunk_k=ctx.chunk_k,
+                          backend=backend)
+    return DTensor.from_local(o, q.device_mesh, q.placements)
+
+
+def _context_attention(q, k, v, ctx: RunCtx, kind: str, window: int):
+    """Context-parallel attention on the mesh: q/k/v sequence-sharded over
+    ``tp_axis``; ``context_parallel_attention`` on each rank's shards, which
+    gathers the K/V along the sequence.  -> o with q's placements."""
+    from torch.distributed.tensor import DTensor, Shard
+    dp, tp = ctx.dp_axes, ctx.tp_axis
+    q, k, v = (ctx.constrain(t, (dp, tp, None, None)) for t in (q, k, v))
+    mesh = q.device_mesh
+    if q.placements[mesh.mesh_dim_names.index(tp)] != Shard(1):
+        raise ValueError(f"context attention: sequence {q.shape[1]} does not "
+                         f"divide over {tp!r}")
+    o = context_parallel_attention(q.to_local(), k.to_local(), v.to_local(),
+                                   mesh, tp, kind=kind, window=window,
+                                   chunk_q=ctx.chunk_q, chunk_k=ctx.chunk_k)
+    return DTensor.from_local(o, mesh, q.placements)
 
 
 def cross_query(p, x, cfg: ModelConfig):
     """The cross-attention's queries (b, s, h, hd): ``qkv_proj``'s q alone
     (the reference projects k and v from ``x`` too, and drops them)."""
-    b, s, _ = x.shape
-    q = torch.matmul(x, p["wq"])
+    q = L.dense(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(q.dtype)
-    return q.reshape(b, s, cfg.num_heads, cfg.resolved_head_dim)
+    return L.split_heads(q, cfg.num_heads, cfg.resolved_head_dim)
 
 
 def cross_attention(p, x, ck, cv, cfg: ModelConfig, ctx: RunCtx,
@@ -355,19 +469,22 @@ def cross_attention(p, x, ck, cv, cfg: ModelConfig, ctx: RunCtx,
     """Whisper's cross-attention: queries from ``x``, keys and values the
     encoder's (ck, cv) (b, enc_s, kv, hd), no mask; all queries in one
     chunk, as the reference's."""
-    o = chunked_attention(cross_query(p, x, cfg), ck, cv, kind="bidir",
-                          chunk_q=x.shape[1], chunk_k=ctx.chunk_k,
-                          backend=backend)
+    q = cross_query(p, x, cfg)
+    if is_dtensor(q):
+        o = _head_sharded_attention(q, ck, cv, ctx, "bidir", 0, x.shape[1],
+                                    backend)
+    else:
+        o = chunked_attention(q, ck, cv, kind="bidir", chunk_q=x.shape[1],
+                              chunk_k=ctx.chunk_k, backend=backend)
     return L.out_proj(p, o)
 
 
 def proj_cross(bp, enc_out, cfg: ModelConfig):
     """One decoder block's cross K/V (b, enc_s, kv, hd) from the encoder's
     output, by its own ``wk``/``wv`` (no bias, as the reference)."""
-    b, s, _ = enc_out.shape
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    return (torch.matmul(enc_out, bp["cross"]["wk"]).reshape(b, s, kv, hd),
-            torch.matmul(enc_out, bp["cross"]["wv"]).reshape(b, s, kv, hd))
+    return (L.split_heads(L.dense(enc_out, bp["cross"]["wk"]), kv, hd),
+            L.split_heads(L.dense(enc_out, bp["cross"]["wv"]), kv, hd))
 
 
 def block_fwd(p, x, cfg: ModelConfig, ctx: RunCtx, sig: Tuple[str, str],
@@ -379,6 +496,9 @@ def block_fwd(p, x, cfg: ModelConfig, ctx: RunCtx, sig: Tuple[str, str],
     serving)."""
     kind, ffn = sig
     h = _norm(p["norm1"], x, cfg)
+    if kind in (RECURRENT, MLSTM, SLSTM):
+        # recurrent scans need the sequence local; features shard instead
+        h = ctx.constrain(h, (ctx.dp_axes, None, None))
     if kind == RECURRENT:
         x = x + rglru_lib.rglru_block(p["rglru"], h)
     elif kind == MLSTM:
@@ -393,7 +513,7 @@ def block_fwd(p, x, cfg: ModelConfig, ctx: RunCtx, sig: Tuple[str, str],
         hc = _norm(p["norm_cross"], x, cfg)
         x = x + cross_attention(p["cross"], hc, *proj_cross(p, enc_out, cfg),
                                 cfg, ctx, backend)
-    x, aux = ffn_fwd(p, x, cfg, ffn)
+    x, aux = ffn_fwd(p, x, cfg, ffn, ctx)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
@@ -418,12 +538,13 @@ def encode(params, feats, cfg: ModelConfig, ctx: RunCtx,
     where autograd is on."""
     x = feats.to(ctx.compute_dtype)
     pos = torch.arange(x.shape[1], device=x.device)
-    x = x + sinusoidal(pos, cfg.d_model).to(x.dtype)[None]
+    sin_pos, = L.beside(x, sinusoidal(pos, cfg.d_model).to(x.dtype)[None])
+    x = x + sin_pos
     remat = ctx.remat and torch.is_grad_enabled()
 
     def body(x, bp):
-        return block_fwd(bp, x, cfg, ctx, ENCODER_SIG, "bidir", 0,
-                         (None, None), backend=backend)[0]
+        return ctx.act(block_fwd(bp, x, cfg, ctx, ENCODER_SIG, "bidir", 0,
+                                 (None, None), backend=backend)[0])
 
     enc = params["encoder"]
     for bp in _unbind(enc["blocks"], cfg.encoder_layers):
@@ -451,12 +572,16 @@ def forward_hidden(params, tokens, cfg: ModelConfig, ctx: RunCtx,
     u, reps, rem = stack_plan(sigs)
     s = tokens.shape[1]
     seq = torch.arange(s, device=tokens.device)
-    x = embed(params, tokens, cfg, ctx, positions=seq)
+    x = ctx.act(embed(params, tokens, cfg, ctx, positions=seq))
     if patch_embeds is not None:
         npk = patch_embeds.shape[1]
         x = torch.cat([patch_embeds.to(x.dtype), x[:, npk:]], dim=1)
-    rope = rope_for(cfg, seq if positions is None else positions,
-                    mrope_positions)
+    if is_dtensor(mrope_positions):
+        # integer positions, gathered whole: the tables are built plain
+        # and replicated (DTensor refuses the plain frequencies beside them)
+        mrope_positions = mrope_positions.full_tensor()
+    rope = L.beside(x, *rope_for(cfg, seq if positions is None else positions,
+                                 mrope_positions))
     enc_out = None
     if cfg.encoder_layers:
         if audio_feats is None:
@@ -469,6 +594,7 @@ def forward_hidden(params, tokens, cfg: ModelConfig, ctx: RunCtx,
             kind, window = _effective(cfg, pattern, j)  # periodic: li % u == j
             x, a = block_fwd(unit_p[f"p{j}"], x, cfg, ctx, sigs[j], kind,
                              window, rope, enc_out)
+            x = ctx.act(x)
             aux = aux + a
         return x, aux
 
@@ -482,7 +608,7 @@ def forward_hidden(params, tokens, cfg: ModelConfig, ctx: RunCtx,
         x, a = block_fwd(params["rest"][f"l{li}"], x, cfg, ctx, sigs[li],
                          kind, window, rope, enc_out)
         aux = aux + a
-    x = _norm(params["final_norm"], x, cfg)
+    x = ctx.act(_norm(params["final_norm"], x, cfg))
     return x, aux
 
 
@@ -494,11 +620,42 @@ def _lm_head(params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _chunk_nll(h, lab, m, head):
-    logits = torch.matmul(h, head).float()
+def _chunk_nll(h, lab, m, head, ctx: RunCtx):
+    # vocab-sharded logits on a mesh
+    logits = ctx.constrain(L.dense(h, head).float(),
+                           (ctx.dp_axes, None, ctx.tp_axis))
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lab[..., None].long())[..., 0]
+    if is_dtensor(logits):
+        gold = _gold_sharded(logits, lab, ctx)
+    else:
+        gold = torch.gather(logits, -1, lab[..., None].long())[..., 0]
     return torch.sum((lse - gold) * m)
+
+
+def _gold_sharded(logits, lab, ctx: RunCtx):
+    """The label's logit from vocab-sharded ``DTensor`` logits (b, c, V):
+    each rank gathers from its own vocab slice (0 where the label lies in
+    another's), so the result is partial over the vocab's mesh dim and its
+    gradient is whole on every rank.  (DTensor's own gather over the
+    sharded dim fails in its mask bookkeeping.)"""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = logits.device_mesh
+    lab = ctx.constrain(lab, (ctx.dp_axes, None))
+    ll, labl = logits.to_local(), lab.to_local().long()
+    v0, out, grad = 0, [], []
+    for i, p in enumerate(logits.placements):
+        if p.is_shard(2):
+            v0 = mesh.get_local_rank(i) * ll.shape[-1]
+            out.append(Partial())
+            grad.append(Replicate())
+        else:
+            out.append(p)
+            grad.append(p)
+    mine = (labl >= v0) & (labl < v0 + ll.shape[-1])
+    idx = torch.clamp(labl - v0, 0, ll.shape[-1] - 1)
+    g = torch.where(mine, torch.gather(ll, -1, idx[..., None])[..., 0],
+                    torch.zeros((), dtype=ll.dtype, device=ll.device))
+    return L.from_shards(g, mesh, out, grad)
 
 
 def lm_loss(params, hidden, labels, cfg: ModelConfig, ctx: RunCtx,
@@ -516,13 +673,16 @@ def lm_loss(params, hidden, labels, cfg: ModelConfig, ctx: RunCtx,
     if s % c:
         raise ValueError(f"sequence {s} is not a multiple of loss_chunk {c}")
     if loss_mask is None:
-        loss_mask = torch.ones((b, s), dtype=torch.float32,
-                               device=hidden.device)
+        loss_mask = torch.ones_like(labels, dtype=torch.float32)
+    # the chunks slice the sequence: gather it once (context mode shards it)
+    hidden = ctx.constrain(hidden, (ctx.dp_axes, None, None))
+    labels, loss_mask = (ctx.constrain(t, (ctx.dp_axes, None))
+                         for t in (labels, loss_mask))
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, s, c):
         total = total + checkpoint(_chunk_nll, hidden[:, i:i + c],
                                    labels[:, i:i + c], loss_mask[:, i:i + c],
-                                   head, use_reentrant=False)
+                                   head, ctx, use_reentrant=False)
     if not normalize:
         return total
     return total / torch.clamp(torch.sum(loss_mask), min=1.0)

@@ -24,8 +24,10 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import is_dtensor
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import (beside, dense, dense_init,
+                                       split_heads)
 
 _M0 = -1e30     # the stabiliser's start: exp(m0 - m) is exactly 0
 
@@ -55,6 +57,12 @@ def init_mlstm(gen: torch.Generator, cfg: ModelConfig, dtype, device):
     }
 
 
+def _logsigmoid(z):
+    """``F.logsigmoid``; on a ``DTensor`` as -softplus(-z), whose backward
+    DTensor can shard (it has no strategy for logsigmoid's)."""
+    return -F.softplus(-z) if is_dtensor(z) else F.logsigmoid(z)
+
+
 def mlstm_state_shapes(cfg: ModelConfig, batch: int):
     """Shapes of (c, n, m) for ``batch`` rows."""
     nh, hd = cfg.num_heads, cfg.resolved_head_dim
@@ -69,13 +77,12 @@ def mlstm_init_state(cfg: ModelConfig, batch: int, device) -> MLSTMState:
 
 
 def _mlstm_qkvif(params, x, cfg: ModelConfig):
-    b, s, _ = x.shape
     nh, hd = cfg.num_heads, cfg.resolved_head_dim
-    q = torch.matmul(x, params["wq"]).reshape(b, s, nh, hd)
-    k = torch.matmul(x, params["wk"]).reshape(b, s, nh, hd) * (hd ** -0.5)
-    v = torch.matmul(x, params["wv"]).reshape(b, s, nh, hd)
-    i = torch.matmul(x, params["wi"]).float() + params["bi"]
-    lf = F.logsigmoid(torch.matmul(x, params["wf"]).float() + params["bf"])
+    q = split_heads(dense(x, params["wq"]), nh, hd)
+    k = split_heads(dense(x, params["wk"]), nh, hd) * (hd ** -0.5)
+    v = split_heads(dense(x, params["wv"]), nh, hd)
+    i = dense(x, params["wi"]).float() + params["bi"]
+    lf = _logsigmoid(dense(x, params["wf"]).float() + params["bf"])
     return q, k, v, i, lf
 
 
@@ -87,7 +94,8 @@ def _mlstm_chunk(qx, kx, vx, ix, lfx, C, N, M):
     m_inter = bcs + M[:, None]                            # (b, t, nh)
     # intra-chunk decay of key s at query t: b_t - b_s + i_s for s <= t
     gap = bcs[:, :, None] - bcs[:, None] + ix[:, None]    # (b, t, s, nh)
-    tri = torch.tril(torch.ones((t, t), dtype=torch.bool, device=qx.device))
+    tri, = beside(qx, torch.tril(torch.ones((t, t), dtype=torch.bool,
+                                             device=qx.device)))
     gap = torch.where(tri[None, :, :, None], gap, -torch.inf)
     m_intra = gap.amax(dim=2)                             # (b, t, nh)
     m_t = torch.maximum(m_inter, m_intra)
@@ -113,6 +121,43 @@ def _mlstm_chunk(qx, kx, vx, ix, lfx, C, N, M):
     return h, (C_new, N_new, m_new)
 
 
+def _mlstm_scan(q, k, v, ig, lf, C, N, M, chunk: int):
+    """The chunks of one sequence in order, from state (C, N, M) -> (h
+    (b, s, nh, hd) f32, the final C, N, M)."""
+    hs = []
+    for lo in range(0, q.shape[1], chunk):
+        sl = slice(lo, lo + chunk)
+        h, (C, N, M) = _mlstm_chunk(q[:, sl], k[:, sl], v[:, sl], ig[:, sl],
+                                    lf[:, sl], C, N, M)
+        hs.append(h)
+    return torch.cat(hs, dim=1), C, N, M
+
+
+def _on_local_heads(x, nh: int, fn, inputs, out_head_dims):
+    """``fn`` on each rank's shards of ``DTensor`` inputs, for a computation
+    independent per (row, head).  Each (tensor, head dim) of ``inputs`` is
+    placed with its rows (dim 0) as ``x``'s and its heads over the last
+    mesh dim that neither shards x's rows nor fails to divide ``nh``; fn's
+    outputs come back with the placements of ``out_head_dims``.  DTensor
+    (torch 2.11) cannot fold a sharded head dim into the rows of the
+    scan's products."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = x.device_mesh
+    heads = next((i for i in reversed(range(mesh.ndim))
+                  if not x.placements[i].is_shard() and mesh.shape[i] > 1
+                  and nh % mesh.shape[i] == 0), None)
+
+    def placed(hd):
+        return [Shard(0) if p.is_shard(0) else
+                Shard(hd) if i == heads else Replicate()
+                for i, p in enumerate(x.placements)]
+
+    outs = fn(*(t.redistribute(mesh, placed(hd)).to_local()
+                for t, hd in inputs))
+    return tuple(DTensor.from_local(o, mesh, placed(hd))
+                 for o, hd in zip(outs, out_head_dims))
+
+
 def mlstm_chunked(params, x, cfg: ModelConfig,
                   state: Optional[MLSTMState] = None, chunk: int = 256,
                   return_state: bool = False):
@@ -125,18 +170,18 @@ def mlstm_chunked(params, x, cfg: ModelConfig,
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
     if state is None:
-        state = mlstm_init_state(cfg, b, x.device)
-    C, N, M = state
-    hs = []
-    for lo in range(0, s, chunk):
-        sl = slice(lo, lo + chunk)
-        h, (C, N, M) = _mlstm_chunk(q[:, sl], k[:, sl], v[:, sl], ig[:, sl],
-                                    lf[:, sl], C, N, M)
-        hs.append(h)
-    h = torch.cat(hs, dim=1).to(x.dtype)
-    og = torch.sigmoid(torch.matmul(x, params["w_ogate"])).reshape(b, s, nh,
-                                                                    hd)
-    out = torch.matmul((h * og).reshape(b, s, nh * hd), params["w_out"])
+        state = beside(x, *mlstm_init_state(cfg, b, x.device))
+    if is_dtensor(x):
+        # per (row, head) throughout: each rank scans its own
+        h, C, N, M = _on_local_heads(
+            x, nh, lambda *a: _mlstm_scan(*a, chunk=chunk),
+            [(q, 2), (k, 2), (v, 2), (ig, 2), (lf, 2), (state[0], 1),
+             (state[1], 1), (state[2], 1)], (2, 1, 1, 1))
+    else:
+        h, C, N, M = _mlstm_scan(q, k, v, ig, lf, *state, chunk=chunk)
+    h = h.to(x.dtype)
+    og = split_heads(torch.sigmoid(dense(x, params["w_ogate"])), nh, hd)
+    out = dense((h * og).reshape(b, s, nh * hd), params["w_out"])
     if return_state:
         return out, MLSTMState(C, N, M)
     return out
@@ -158,9 +203,9 @@ def mlstm_decode_step(params, x, cfg: ModelConfig, state: MLSTMState):
     num = torch.einsum("bhd,bhde->bhe", q, C)
     den = torch.einsum("bhd,bhd->bh", q, N)
     h = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
-    og = torch.sigmoid(torch.matmul(x[:, 0], params["w_ogate"])).reshape(
+    og = torch.sigmoid(dense(x[:, 0], params["w_ogate"])).reshape(
         b, nh, hd)
-    y = torch.matmul((h.to(x.dtype) * og).reshape(b, nh * hd),
+    y = dense((h.to(x.dtype) * og).reshape(b, nh * hd),
                      params["w_out"])
     return y[:, None], MLSTMState(C, N, m_new)
 
@@ -223,12 +268,12 @@ def _slstm_cell(params, u_t, state: SLSTMState, nh: int, hd: int):
     new state)."""
     c, n, h, m = state
     rec = torch.einsum("bhd,hde->bhe", h.to(params["r"].dtype), params["r"])
-    pre = (u_t.reshape(-1, nh, 4 * hd).float() + rec.float()
+    pre = (split_heads(u_t, nh, 4 * hd).float() + rec.float()
            + params["b_in"].reshape(nh, 4 * hd))
     z, i, f, o = torch.split(pre, hd, dim=-1)           # (b, nh, hd) each
     z = torch.tanh(z)
     o = torch.sigmoid(o)
-    lf = F.logsigmoid(f)
+    lf = _logsigmoid(f)
     m_new = torch.maximum(lf + m, i)
     a = torch.exp(lf + m - m_new)
     bb = torch.exp(i - m_new)
@@ -244,15 +289,15 @@ def slstm_block(params, x, cfg: ModelConfig,
     """x (b, s, d) -> (b, s, d): a loop over the sequence."""
     b, s, d = x.shape
     nh, hd = cfg.num_heads, cfg.resolved_head_dim
-    u = torch.matmul(x, params["w_in"])                 # (b, s, 4 * nh * hd)
+    u = dense(x, params["w_in"])                 # (b, s, 4 * nh * hd)
     if state is None:
-        state = slstm_init_state(cfg, b, x.device)
+        state = SLSTMState(*beside(x, *slstm_init_state(cfg, b, x.device)))
     hs = []
     for t in range(s):
         h, state = _slstm_cell(params, u[:, t], state, nh, hd)
         hs.append(h)
     hs = torch.stack(hs, dim=1).reshape(b, s, nh * hd).to(x.dtype)
-    out = torch.matmul(hs, params["w_out"])
+    out = dense(hs, params["w_out"])
     if return_state:
         return out, state
     return out
@@ -261,7 +306,7 @@ def slstm_block(params, x, cfg: ModelConfig,
 def slstm_decode_step(params, x, cfg: ModelConfig, state: SLSTMState):
     b = x.shape[0]
     nh, hd = cfg.num_heads, cfg.resolved_head_dim
-    u = torch.matmul(x[:, 0], params["w_in"])
+    u = dense(x[:, 0], params["w_in"])
     h, state = _slstm_cell(params, u, state, nh, hd)
-    out = torch.matmul(h.reshape(b, nh * hd).to(x.dtype), params["w_out"])
+    out = dense(h.reshape(b, nh * hd).to(x.dtype), params["w_out"])
     return out[:, None], state

@@ -13,6 +13,7 @@ from typing import Callable, Tuple
 
 import torch
 
+from repro_torch import is_dtensor
 from repro_torch.kernels.block_topk import fused_sgdm, fused_sgdm_ref
 from repro_torch.tree import leaves, tree_map, unflatten
 
@@ -20,10 +21,12 @@ BACKENDS = {"kernel": fused_sgdm, "torch": fused_sgdm_ref}
 
 
 def sgdm_init(params, mom_dtype=torch.float32):
-    """Zero momentum for every leaf.  ``fused_sgdm`` keeps f32 momentum, so
-    a bf16 ``mom_dtype`` is updated by plain code on the CPU only."""
-    return {"mom": tree_map(lambda p: torch.zeros(p.shape, dtype=mom_dtype,
-                                                  device=p.device), params)}
+    """Zero momentum for every leaf, placed as the leaf is (a ``DTensor``
+    leaf gets a ``DTensor`` with its placements).  ``fused_sgdm`` keeps f32
+    momentum, so a bf16 ``mom_dtype`` is updated by plain code on the CPU
+    only."""
+    return {"mom": tree_map(lambda p: torch.zeros_like(p, dtype=mom_dtype),
+                            params)}
 
 
 def _lr_tensor(lr, like: torch.Tensor) -> torch.Tensor:
@@ -38,7 +41,9 @@ def sgdm_update(grads, state, params, *, lr, momentum=0.9, weight_decay=0.0,
 
     ``backend="kernel"`` sends each non-Nesterov f32-momentum leaf through
     ``fused_sgdm`` (the kernel on CUDA tensors); ``"torch"`` through its
-    plain version on any device.
+    plain version on any device.  ``DTensor`` leaves update on their local
+    shards, each gradient first brought to its param's placements (autograd
+    may leave it partial, or otherwise placed).
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {sorted(BACKENDS)}")
@@ -48,6 +53,8 @@ def sgdm_update(grads, state, params, *, lr, momentum=0.9, weight_decay=0.0,
     lr_t = _lr_tensor(lr, flat_p[0])
 
     def upd(g, m, p):
+        if is_dtensor(p) and is_dtensor(g) and g.placements != p.placements:
+            g = g.redistribute(p.device_mesh, p.placements)
         if not nesterov and m.dtype == torch.float32:
             return BACKENDS[backend](p, m, g, lr_t, momentum, weight_decay)
         if p.device.type == "cuda" and not nesterov:
@@ -66,7 +73,7 @@ def sgdm_update(grads, state, params, *, lr, momentum=0.9, weight_decay=0.0,
 
 def adam_init(params):
     def z(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
 
     flat = leaves(params)
     return {"m": tree_map(z, params), "v": tree_map(z, params),

@@ -16,8 +16,9 @@ from typing import Any, Callable, Dict, List, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch import is_dtensor
 from repro_torch.models.transformer import RunCtx, forward_hidden, lm_loss
-from repro_torch.tree import leaves, unflatten
+from repro_torch.tree import leaves, tree_map, unflatten
 
 MOE_AUX_WEIGHT = 0.01
 # batch inputs passed through to forward_hidden (whisper, qwen2-vl)
@@ -37,8 +38,8 @@ def make_loss_fn(cfg: ModelConfig, ctx: RunCtx, sum_form: bool = False):
         mask = batch.get("loss_mask")
         w = batch.get("sample_weights")   # (b,) ScaDLES rate weights, sum=1
         if w is not None:
-            base = (torch.ones(batch["labels"].shape, dtype=torch.float32,
-                               device=h.device) if mask is None else mask)
+            base = (torch.ones_like(batch["labels"], dtype=torch.float32)
+                    if mask is None else mask)
             if sum_form:
                 # per-token weight w_i / (#valid tokens of i): the weighted
                 # SUM over any microbatch partition equals the full-batch
@@ -74,11 +75,46 @@ def value_and_grad(loss_fn, params, batch
     flat_p = leaves(params)
     live = [p.detach().requires_grad_() for p in flat_p]
     total, metrics = loss_fn(unflatten(params, live), batch)
+    if is_dtensor(total):
+        # the backward seeds a replicated 1, never a partial one
+        metrics = {k: _replicated(v) if is_dtensor(v) else v
+                   for k, v in metrics.items()}
+        total = _replicated(total)
     grads = torch.autograd.grad(total, live, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for g, p in zip(grads, flat_p)]
     return (total.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)
+
+
+def _replicated(x):
+    """A ``DTensor`` replicated over its mesh (a partial sum reduced)."""
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def _pinned(x, placements):
+    """``x`` (a ``DTensor``) redistributed to ``placements`` on its mesh;
+    a plain tensor as it is."""
+    if not is_dtensor(x) or tuple(x.placements) == tuple(placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def _check_mirrors(params, shardings) -> None:
+    """Raise ``ValueError`` unless ``shardings`` has ``params``' structure
+    with one ``NamedSharding`` (``dist.sharding.named``) a leaf, whose spec
+    has an entry per dim of its param."""
+    flat_s = leaves(shardings)
+    same_shape = (tree_map(lambda _: None, shardings)
+                  == tree_map(lambda _: None, params))
+    if (not same_shape
+            or not all(hasattr(s, "placements") and hasattr(s, "spec")
+                       for s in flat_s)
+            or any(len(s.spec) != p.ndim
+                   for s, p in zip(flat_s, leaves(params)))):
+        raise ValueError("grad_shardings must mirror the params: one "
+                         "NamedSharding (dist.sharding.named) per leaf")
 
 
 def split_microbatches(x: torch.Tensor, n_micro: int) -> torch.Tensor:
@@ -110,13 +146,16 @@ def make_train_step(cfg: ModelConfig, ctx: RunCtx, opt_update: Callable,
     to nearest even, as XLA's convert) before the f32 add.  Every step adds
     ``total``, ``grad_norm`` (the f32 norm of the accumulated gradient
     before the update) and ``lr = lr_schedule(step)`` to the metrics.
-    ``grad_shardings`` pins the accumulator's layout on a mesh in the
-    reference; the port runs on one device and refuses anything but None.
+
+    On a mesh (``ctx.mesh``; params, state and batch ``DTensor``s from
+    ``dist.sharding.distribute``) each microbatch keeps its leaves'
+    placements, and ``grad_shardings`` (``dist.sharding.named`` of the
+    param specs, mirroring the params) pins the f32 accumulator ZeRO-2
+    fashion: it is created with those placements and brought back to them
+    after each microbatch, so a partial gradient is reduce-scattered into
+    it instead of all-reduced whole.  A tree that does not mirror the
+    params raises ``ValueError``.
     """
-    if grad_shardings is not None:
-        raise NotImplementedError(
-            "grad_shardings: the port's train step runs on one device; "
-            "sharded accumulators come with distribution (ROADMAP §1)")
     loss_mean = make_loss_fn(cfg, ctx, sum_form=False)
     loss_sum = make_loss_fn(cfg, ctx, sum_form=True)
 
@@ -130,6 +169,8 @@ def make_train_step(cfg: ModelConfig, ctx: RunCtx, opt_update: Callable,
         return params, opt_state, metrics
 
     def train_step(params, opt_state, batch, step):
+        if grad_shardings is not None:
+            _check_mirrors(params, grad_shardings)
         if n_micro == 1:
             total, metrics, grads = value_and_grad(loss_mean, params, batch)
             return finish(params, opt_state, grads, total, metrics, step)
@@ -137,17 +178,25 @@ def make_train_step(cfg: ModelConfig, ctx: RunCtx, opt_update: Callable,
         if "sample_weights" not in batch:
             raise ValueError("microbatching needs sample weights")
         micro = {k: split_microbatches(v, n_micro) for k, v in batch.items()}
-        grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                 for p in leaves(params)]
+        flat_p = leaves(params)
+        if grad_shardings is None:
+            grads = [torch.zeros_like(p, dtype=torch.float32)
+                     for p in flat_p]
+        else:
+            places = [s.placements for s in leaves(grad_shardings)]
+            grads = [_pinned(torch.zeros_like(p, dtype=torch.float32), pl)
+                     for p, pl in zip(flat_p, places)]
         total = torch.zeros((), dtype=torch.float32,
                             device=batch["tokens"].device)
         for i in range(n_micro):
-            t, _, g = value_and_grad(loss_sum, params,
-                                     {k: v[i] for k, v in micro.items()})
+            mb = {k: _pinned(v[i], batch[k].placements) if is_dtensor(v)
+                  else v[i] for k, v in micro.items()}
+            t, _, g = value_and_grad(loss_sum, params, mb)
             for acc, gi in zip(grads, g):
                 if grad_wire_bf16:
                     gi = gi.to(torch.bfloat16)
-                acc.add_(gi.float())
+                acc.add_(_pinned(gi.float(), acc.placements)
+                         if is_dtensor(acc) else gi.float())
             total = total + t
         return finish(params, opt_state, grads, total,
                       {"loss": total, "aux": torch.zeros_like(total)}, step)

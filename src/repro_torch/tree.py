@@ -44,6 +44,21 @@ def tree_map(fn: Callable, tree, *rest):
                             zip(leaves(tree), *(leaves(r) for r in rest))])
 
 
+def map_with_path(fn: Callable, tree, *rest, path: Tuple[str, ...] = ()):
+    """``fn(path, leaf, *rest_leaves)`` over the leaves of same-shaped
+    trees, ``path`` the dict keys from the root to the leaf as strings.  A
+    list's positions are not part of the path (as the reference's sharding
+    rules read it: they skip sequence keys)."""
+    if isinstance(tree, list):
+        return [map_with_path(fn, *subs, path=path)
+                for subs in zip(tree, *rest)]
+    if not isinstance(tree, dict):
+        return fn(path, tree, *rest)
+    return {key: map_with_path(fn, tree[key], *(r[key] for r in rest),
+                               path=path + (str(key),))
+            for key in sorted(tree)}
+
+
 def ravel(tree) -> Tuple[torch.Tensor, Callable]:
     """``jax.flatten_util.ravel_pytree`` for a tree of tensors: the leaves,
     flattened and concatenated in :func:`leaves` order, and ``unravel``,

@@ -400,3 +400,92 @@ def test_meshes_default_to_cuda(no_card, tmp_path):
             "data", "model")
     finally:
         dist.destroy_process_group()
+
+
+def test_scan_covers_the_distribution_slice():
+    scanned = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in PORT_FILES[:-1]}
+    assert {"dist/__init__.py", "dist/sharding.py",
+            "launch/specs.py"} <= scanned
+
+
+class _StandInMesh:
+    """A mesh of names and sizes on the card, as a DeviceMesh built for
+    CUDA would be (none can be built here)."""
+    mesh_dim_names = ("data", "model")
+    shape = (1, 1)
+    ndim = 2
+    device_type = "cuda"
+
+
+def test_distribution_defaults_to_cuda(no_card):
+    """``make_run_ctx`` names CUDA unless asked for the CPU; ``distribute``
+    onto a CUDA mesh and ``concretize`` raise here before they move
+    anything; ``init_cache(as_spec=True)`` needs no device at all."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.dist import distribute, make_plan, make_run_ctx
+    from repro_torch.launch.specs import concretize, train_batch_specs
+    from repro_torch.models import RunCtx, init_cache
+    cfg = get_config("qwen2-0.5b").reduced()
+    plan = make_plan(_StandInMesh())
+    assert make_run_ctx(cfg, plan).device == "cuda"
+    assert make_run_ctx(cfg, plan, device="cpu").device == "cpu"
+    params = {"embed": torch.zeros((4, 2))}
+    with pytest.raises(RuntimeError, match="cuda"):
+        distribute(params, {"embed": (None, None)}, _StandInMesh())
+    specs = train_batch_specs(cfg, get_shape("train_4k"))
+    assert specs["tokens"].device.type == "meta"
+    with pytest.raises(RuntimeError, match="cuda"):
+        concretize(specs)
+    cache = init_cache(cfg, 2, 8, RunCtx(), as_spec=True)
+    assert cache["pos"].device.type == "meta"
+
+
+def test_fused_sgdm_dtensors_never_run_the_plain_version(tmp_path,
+                                                        monkeypatch):
+    """DTensors whose shards are not on the CPU (meta here, CUDA on the
+    card) never reach the plain version: the wrapper unwraps them and the
+    device check refuses.  CPU DTensors run it on their local shards, plain
+    tensors, and come back with their placements; mixed or unequally
+    placed arguments raise."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.kernels import block_topk as bt
+    from repro_torch.launch.mesh import make_test_mesh
+    seen = []
+    plain = bt.fused_sgdm_ref
+
+    def record(p, m, g, *a):
+        seen.append(tuple(type(t).__name__ for t in (p, m, g)))
+        return plain(p, m, g, *a)
+
+    monkeypatch.setattr(bt, "fused_sgdm_ref", record)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh((1, 1), device="cpu")
+        pl = (Replicate(), Shard(0))
+
+        def dt(t, placements=pl):
+            return DTensor.from_local(t, mesh, placements)
+
+        x = torch.zeros((4, 8), device="meta")
+        with pytest.raises(ValueError, match="device"):
+            bt.fused_sgdm(dt(x), dt(x), dt(x), 0.1)
+        assert seen == []
+        p, m, g = (torch.randn((4, 8), generator=torch.Generator()
+                               .manual_seed(i)) for i in range(3))
+        p2, m2 = bt.fused_sgdm(dt(p), dt(m), dt(g), 0.1, 0.9, 0.01)
+        assert seen == [("Tensor", "Tensor", "Tensor")]
+        assert isinstance(p2, DTensor) and tuple(p2.placements) == pl
+        assert tuple(m2.placements) == pl
+        want = plain(p, m, g, 0.1, 0.9, 0.01)
+        assert torch.equal(p2.to_local(), want[0])
+        assert torch.equal(m2.to_local(), want[1])
+        with pytest.raises(TypeError, match="all be DTensors"):
+            bt.fused_sgdm(dt(p), m, g, 0.1)
+        with pytest.raises(ValueError, match="placements"):
+            bt.fused_sgdm(dt(p), dt(m), dt(g, (Replicate(), Replicate())),
+                          0.1)
+    finally:
+        dist.destroy_process_group()

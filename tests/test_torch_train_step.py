@@ -290,12 +290,49 @@ def test_reduced_train_step_on_the_port(arch):
 
 
 def test_refusals(qwen):
-    """Microbatching needs sample weights; a sharded accumulator waits for
-    distribution."""
+    """Microbatching needs sample weights; ``grad_shardings`` must mirror
+    the params."""
     _, tcfg, _, tp = qwen
     _, tb = _batch(tcfg)
-    del tb["sample_weights"]
+    weights = tb.pop("sample_weights")
     with pytest.raises(ValueError, match="sample weights"):
         _port_step(tcfg, tp, tb, n_micro=2)
-    with pytest.raises(NotImplementedError, match="grad_shardings"):
-        make_train_step(tcfg, TCTX, None, None, grad_shardings={})
+    tb["sample_weights"] = weights
+    with pytest.raises(ValueError, match="grad_shardings"):
+        _port_step(tcfg, tp, tb, n_micro=2, grad_shardings={})
+
+
+def test_grad_shardings_on_one_rank_give_the_unsharded_bits(qwen, tmp_path):
+    """On a one-rank gloo group, the (1, 1) mesh's step (params, momentum
+    and batch placed by ``distribute``, the ZeRO-2 accumulator pinned by
+    ``grad_shardings``) equals the single-device step bit for bit at
+    ``n_micro`` 2: on one rank every collective is the identity."""
+    import torch.distributed as dist
+    from repro_torch.dist import (batch_specs, distribute, make_plan,
+                                  make_run_ctx, named, param_specs)
+    from repro_torch.launch.mesh import make_test_mesh
+    _, tcfg, _, tp = qwen
+    _, tb = _batch(tcfg)
+    p1, s1, m1 = _port_step(tcfg, tp, tb, n_micro=2)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh((1, 1), device="cpu")
+        plan = make_plan(mesh)
+        ctx = make_run_ctx(tcfg, plan, compute_dtype=torch.float32,
+                           param_dtype=torch.float32, remat=False,
+                           chunk_q=TCTX.chunk_q, chunk_k=TCTX.chunk_k,
+                           loss_chunk=TCTX.loss_chunk, device="cpu")
+        specs = param_specs(tp, tcfg, plan)
+        init, upd = topt.make_optimizer("sgdm", momentum=MOMENTUM)
+        step = make_train_step(tcfg, ctx, upd, lambda t: LR, n_micro=2,
+                               grad_shardings=named(tp, specs, mesh))
+        pd = distribute(tp, specs, mesh)
+        p2, s2, m2 = step(pd, init(pd), distribute(
+            tb, batch_specs(tcfg, plan, tb), mesh), 0)
+        for a, b in zip(leaves(p2) + leaves(s2), leaves(p1) + leaves(s1)):
+            assert torch.equal(a.full_tensor(), b)
+        for k in ("loss", "grad_norm"):
+            assert torch.equal(m2[k].full_tensor(), m1[k])
+    finally:
+        dist.destroy_process_group()
