@@ -195,6 +195,20 @@ package.  Phases, each fatal on failure (exit code 1, no result line):
    against the same steps without a mesh at TRAIN_TOL; then one step of
    each in turns (unsharded, sharded, sharded, unsharded) with its peak
    memory, and the launches a step under torch.profiler;
+8k. (after 8j) the counting layer: (a) ``dist/hlo_cost.py`` and
+   ``obs/mfu.py::lowered_flops`` count phase 8e's ``make_train_step``
+   (momentum SGD) from the card's params and batch: the card's allocated
+   bytes equal before and after, params and batch bitwise unchanged, no
+   launch counter moved, and the count equal to the one taken from CPU
+   copies; (b) that step on the card (one untimed step, then the warm
+   median of COUNT's steps, counted: one ``fused_sgdm`` per leaf a step)
+   against its counted flops (the f32 67 TFLOP/s peak: TF32 is off) and
+   bytes (3.35 TB/s), naming the bound; (c) ``dist/calibrate.py`` at the
+   reference's two points, equal to REF_CALIBRATION exactly; (d)
+   ``python -m repro_torch.launch.dryrun`` for qwen2-0.5b at COUNT's
+   shapes on a 256-rank fake group, each artifact complete, its flops
+   above 0 and the train one with all-gathers and reduce-scatters.  (c)
+   and (d) run in their own processes while (a) and (b) run;
 8i. the five ``examples/*_torch.py``, each in a fresh interpreter with
    ``PYTHONPATH=src`` in a temporary working directory: quickstart (the
    loss falls), train_e2e at its default and ``--full --steps 5``
@@ -449,6 +463,21 @@ EXAMPLES = {"card": (("quickstart", "quickstart", []),
 # through the functional collectives DTensor uses ends the process (SIGSEGV,
 # torch 2.11; PERF.md §7)
 SHARDED = {"steps": 2, "turn_steps": 3}
+# phase 8k: the counting layer (phase 8e's step counted, then timed: one
+# untimed step and `turn_steps` timed; the dry runs' shapes and time limit)
+COUNT = {"turn_steps": 3, "dryruns": ("train_4k", "decode_32k"),
+         "timeout_s": 300}
+# repro.dist.calibrate("qwen1.5-0.5b", n, cr, reduced=True) under jax 0.9.0
+# on the CPU (the card's host has no jax; tests/test_torch_calibrate.py
+# holds the port against it live): (n, cr) -> (n_floats, k, dense and
+# compressed wire bytes)
+REF_CALIBRATION = {(2, 0.25): (1_575_680, 393_920, 6_302_728.0, 3_151_372.0),
+                   (4, 0.1): (1_575_680, 157_568, 9_454_092.0, 3_781_650.0)}
+DRYRUN_KEYS = ("arch", "shape", "mesh", "chips", "attn_mode",
+               "flops_per_chip", "bytes_per_chip", "flop_counter_raw",
+               "collective", "memory", "roofline", "model_flops_per_chip",
+               "useful_flops_ratio", "params_total", "params_active",
+               "n_micro", "grad_wire_bf16", "compile_s")
 KERNEL_SOURCES = ["flash_attention", "flash_decode", "block_topk",
                   "fused_sgdm", "scatter_agg"]
 KERNEL_NAMES = ("flash_attention", "flash_decode", "flash_decode_paged",
@@ -3045,6 +3074,153 @@ def time_sharded_step(torch, fns, params, batch, pd, bd, init, card):
         del state
 
 
+# phase 8k: the counting layer
+
+
+def _count(hlo_cost, fn, *args):
+    """(cost summary, recorded program) of one call of ``fn``."""
+    program = hlo_cost.record(fn, *args)
+    return hlo_cost.analyze(program), program
+
+
+def counting_path(torch, mods, card):
+    """Phase 8k: count phase 8e's step on the card's host, then time it
+    against the count; calibrate and two dry runs in their own processes
+    meanwhile.  Returns the timed steps' launch counts."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.dist import hlo_analysis, hlo_cost
+    from repro_torch.dist.calibrate import calibrate
+    from repro_torch.obs.mfu import lowered_flops
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import leaves, tree_map
+    log(f"# phase 8k: the counting layer: qwen2-0.5b's make_train_step at "
+        f"{TRAIN['batch']} x {TRAIN['seq']} (momentum SGD) counted and "
+        "timed; calibrate and the dry runs on fake process groups")
+    tmp = tempfile.mkdtemp(prefix="phase8k_")
+    dry = {shape: _start([sys.executable, "-m", "repro_torch.launch.dryrun",
+                          "--arch", "qwen2-0.5b", "--shape", shape, "--out",
+                          tmp], ROOT) for shape in COUNT["dryruns"]}
+    pool = ThreadPoolExecutor(max_workers=len(REF_CALIBRATION))
+    cals = {key: pool.submit(calibrate, "qwen1.5-0.5b", *key,
+                             cache_dir=str(Path(tmp) / "cal"),
+                             repo_root=str(ROOT))
+            for key in REF_CALIBRATION}
+    try:
+        launched = _count_and_time(torch, mods, card, hlo_analysis,
+                                   hlo_cost, lowered_flops, make_optimizer,
+                                   make_train_step, leaves, tree_map)
+        for (n, cr), fut in cals.items():
+            cal = fut.result(timeout=COUNT["timeout_s"])
+            got = (cal.n_floats, cal.k, cal.dense_wire_bytes,
+                   cal.compressed_wire_bytes)
+            log(f"  (c) calibrate(qwen1.5-0.5b, n {n}, cr {cr}): n_floats "
+                f"{got[0]}, k {got[1]}, dense {got[2]:.0f} and compressed "
+                f"{got[3]:.0f} wire bytes (the reference's "
+                f"{REF_CALIBRATION[(n, cr)]})")
+            if got != REF_CALIBRATION[(n, cr)]:
+                fail(f"phase 8k (c): calibrate at ({n}, {cr}) gave {got}")
+        for shape, proc in dry.items():
+            out = _finish(proc, f"the dry run of {shape}",
+                          COUNT["timeout_s"], phase="8k (d)")
+            ok = [line for line in out.splitlines() if line.startswith("OK")]
+            path = Path(tmp) / f"qwen2-0.5b__{shape}__16x16.json"
+            rec = json.loads(path.read_text())
+            missing = [k for k in DRYRUN_KEYS if k not in rec]
+            coll = rec["collective"]
+            log(f"  (d) {ok[-1] if ok else out[-300:]}")
+            log(f"      flops {rec['flops_per_chip']:.6g}, bytes "
+                f"{rec['bytes_per_chip']:.6g}, wire {coll['total']:.6g} a "
+                f"chip; collectives {int(coll['count'])}: "
+                + ", ".join(f"{k} {coll[k]:.6g}" for k in
+                            ("all-reduce", "all-gather", "reduce-scatter",
+                             "all-to-all"))
+                + f"; cpu_alltoall_as_allgather "
+                f"{rec['cpu_alltoall_as_allgather']}; recorded in "
+                f"{rec['record_s']:.1f} s")
+            if missing or not ok or not rec["flops_per_chip"] > 0:
+                fail(f"phase 8k (d): the {shape} artifact lacks {missing} "
+                     f"or counts no flops")
+            if shape.startswith("train") and not (
+                    coll["all-gather"] > 0 and coll["reduce-scatter"] > 0):
+                fail(f"phase 8k (d): the {shape} program on the 16 x 16 "
+                     "mesh has no all-gather or no reduce-scatter")
+    finally:
+        for proc in dry.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        pool.shutdown(cancel_futures=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launched
+
+
+def _count_and_time(torch, mods, card, hlo_analysis, hlo_cost,
+                    lowered_flops, make_optimizer, make_train_step, leaves,
+                    tree_map):
+    """(a) and (b) of phase 8k."""
+    cfg, ctx, params, batch = train_setup(torch)
+    b = TRAIN["batch"]
+    batch["sample_weights"] = torch.full((b,), 1.0 / b, device=DEVICE)
+    init, update = make_optimizer("sgdm", momentum=TRAIN["momentum"],
+                                  backend="kernel")
+    step_fn = make_train_step(cfg, ctx, update, lambda i: TRAIN["lr"])
+    state = init(params)
+    before = [t.clone() for t in leaves([params, batch])]
+    torch.cuda.synchronize()
+    reset(mods)
+    allocated = torch.cuda.memory_allocated()
+    got, program = _count(hlo_cost, step_fn, params, state, batch, 0)
+    flops = lowered_flops(step_fn, params, state, batch, 0)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    same = all(torch.equal(x, y) for x, y in
+               zip(before, leaves([params, batch])))
+    del before
+    cpu = tree_map(lambda t: t.cpu(), [params, state, batch])
+    on_cpu, _ = _count(hlo_cost, step_fn, *cpu, 0)
+    del cpu
+    log(f"  (a) counted on the card's host: {got['flops']:.6g} flops, "
+        f"{got['transcendentals']:.6g} transcendentals, {got['bytes']:.6g} "
+        f"bytes, {len(program.ops)} ops, recorded in {program.seconds:.2f} s"
+        f"; lowered_flops {flops}; unknown ops "
+        f"{sorted(program.unknown) or 'none'}; the card's allocated bytes "
+        f"{allocated} before, {after} after; launches {counts(mods)}; "
+        f"params and batch unchanged: {same}; CPU copies' count equal: "
+        f"{on_cpu == got}")
+    if not (after == allocated and same and counts(mods) == expect()
+            and on_cpu == got and flops == got["flops"]):
+        fail("phase 8k (a): counting touched the card, or its count "
+             "differs from the CPU copies' or from lowered_flops")
+    _, _, _, walls = _steps(torch, step_fn, params, state, batch, 1)
+    reset(mods)
+    _, _, _, walls = _steps(torch, step_fn, params, state, batch,
+                            COUNT["turn_steps"])
+    launched = counts(mods)
+    want = expect(fused_sgdm=COUNT["turn_steps"] * len(leaves(params)))
+    if launched != want:
+        fail(f"phase 8k (b): the timed steps launched {launched}, expected "
+             f"{want}")
+    med = statistics.median(walls) / 1e3
+    compute_s = got["flops"] / PEAK_OPS["float32"]
+    memory_s = got["bytes"] / HBM_BPS
+    log(f"  (b) step walls {', '.join(f'{w:.1f}' for w in walls)} ms "
+        f"(synchronised, after one untimed step), median {med * 1e3:.1f} ms:"
+        f" {got['flops'] / med / 1e12:.2f} TFLOP/s counted, "
+        f"{100 * compute_s / med:.1f}% of the f32 67 TFLOP/s peak "
+        f"({compute_s * 1e3:.1f} ms); the counted bytes at 3.35 TB/s "
+        f"{memory_s * 1e3:.1f} ms ({100 * memory_s / med:.1f}%); bound by "
+        f"{'operations' if compute_s >= memory_s else 'bytes'}; the H100 "
+        f"roofline (bf16 peak, as the dry run's) "
+        f"{hlo_analysis.roofline(got['flops'], got['bytes'], 0.0)}; "
+        f"launches {launched}  [{card}]")
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return launched
+
+
 # the example run in a fresh interpreter as __main__, then the wrappers'
 # launch counts on a line of their own
 _COUNTED_RUN = """
@@ -3083,7 +3259,7 @@ def _start(cmd, cwd, threads=None):
                             stderr=subprocess.PIPE, text=True)
 
 
-def _finish(proc, label, timeout):
+def _finish(proc, label, timeout, phase="8i"):
     """Wait for ``proc``; fail with the tail of its errors unless it exits
     0.  Returns its standard output."""
     try:
@@ -3091,9 +3267,10 @@ def _finish(proc, label, timeout):
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.communicate()
-        fail(f"phase 8i: {label} ran past {timeout} s")
+        fail(f"phase {phase}: {label} ran past {timeout} s")
     if proc.returncode != 0:
-        fail(f"phase 8i: {label} exited {proc.returncode}: {err[-3000:]}")
+        fail(f"phase {phase}: {label} exited {proc.returncode}: "
+             f"{err[-3000:]}")
     return out
 
 
@@ -3984,6 +4161,7 @@ def main() -> None:
     mesh_path(torch, card)
     paths["8j sharded make_train_step"] = sharded_step_path(torch, mods,
                                                             card)
+    paths["8k counted make_train_step"] = counting_path(torch, mods, card)
     paths["8i serve_batched_torch.py"] = examples_path(torch, mods, card)
     times.update(time_kernels(torch, fa, fd))
     zoo_times = time_zoo_kernels(

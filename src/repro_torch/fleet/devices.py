@@ -170,8 +170,9 @@ class FleetConfig:
     controller_skew_threshold: float = 0.35
     # comm-bytes source: None keeps the analytic ring formula (bit-exact with
     # the legacy EdgeClock under homogeneous full-sync); any object exposing
-    # ``bytes_for(floats_on_wire) -> bytes`` overrides it — the reference's
-    # dist/calibrate.py CommCalibration supplies one parsed from compiled DDP HLO
+    # ``bytes_for(floats_on_wire) -> bytes`` overrides it —
+    # repro_torch.dist.calibrate.CommCalibration supplies one recorded from
+    # the DDP programs
     comm_model: Optional[object] = None
     seed: int = 0
 

@@ -36,8 +36,8 @@ Communication is modelled per link: a device's ring-allreduce share
 (2(N-1)/N * 4G bytes, plus any injection broadcast) crosses its own link at
 ``bandwidth_gbps * bandwidth_efficiency`` — under heterogeneous links the
 round becomes slowest-link-bound, which is how a ring actually degrades.
-``FleetConfig.comm_model`` (e.g. the reference's ``dist/calibrate.py::CommCalibration``
-parsed from compiled DDP HLO) replaces the analytic byte count with measured
+``FleetConfig.comm_model`` (e.g. ``repro_torch.dist.calibrate.CommCalibration``,
+recorded from the DDP programs) replaces the analytic byte count with measured
 per-device collective wire bytes; ``None`` keeps the legacy formula and the
 bit-exact EdgeClock equivalence.
 
@@ -183,8 +183,8 @@ class FleetEngine:
     def device_comm_time(self, i: int, floats_on_wire: float,
                          extra_bytes: float = 0.0) -> float:
         if self.comm_model is not None:
-            # calibrated source: per-device collective wire bytes parsed from
-            # the compiled DDP program (the reference's dist/calibrate.py)
+            # calibrated source: per-device collective wire bytes recorded
+            # from the DDP program (repro_torch.dist.calibrate)
             bytes_ = self.comm_model.bytes_for(floats_on_wire) + extra_bytes
         else:
             ring = 2 * (self.n - 1) / self.n

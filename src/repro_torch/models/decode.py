@@ -55,7 +55,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import is_dtensor, resolve_device
 from repro_torch.configs.base import (ATTN_FULL, MLSTM, RECURRENT, SLSTM,
                                       ModelConfig)
 from repro_torch.models import layers as L
@@ -536,13 +536,47 @@ def _block_decode(bp, x, cl, cfg: ModelConfig, ctx: RunCtx, sig, rope,
         o = decode_attention(cross_query(bp["cross"], hc, cfg), cl["ck"],
                              cl["cv"], cross_len, backend=ctx.decode_backend)
         x = x + L.out_proj(bp["cross"], o)
-    return ffn_fwd(bp, x, cfg, ffn)[0]
+    return ffn_fwd(bp, x, cfg, ffn, ctx)[0]
 
 
 def _store(cl, **state):
     """Write a layer's new recurrent state into its cache, in place."""
     for leaf, t in state.items():
         cl[leaf].copy_(t)
+
+
+def _write_step(buf, slot, x) -> None:
+    """``buf[:, slot] = x[:, 0]`` in place, along the sequence dim of a
+    (b, S, ...) cache.
+
+    A ``DTensor`` cache (a mesh, ``dist/sharding.py::cache_specs``: the
+    sequence over ``tp``) is written on its local shards: ``x`` is brought
+    to the cache's placements with the sequence whole, and each rank writes
+    at ``slot`` less its shard's offset, clamped into its shard, the new
+    row where it holds ``slot`` and its own row back elsewhere, so no data
+    moves between ranks.  DTensor itself has no rule for ``index_copy_`` on
+    a sharded dim in every torch version."""
+    if not is_dtensor(buf):
+        buf.index_copy_(1, slot.reshape(1), x)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, places = buf.device_mesh, buf.placements
+    if is_dtensor(x):
+        x = x.redistribute(mesh, [Replicate() if p == Shard(1) else p
+                                  for p in places]).to_local()
+    if is_dtensor(slot):
+        slot = slot.to_local()
+    local = buf.to_local()
+    # this rank's first sequence position: its shard's index over the mesh
+    # dims that split the sequence, the earlier mesh dim outermost
+    shard = 0
+    for coord, n, p in zip(mesh.get_coordinate(), mesh.shape, places):
+        if p == Shard(1):
+            shard = shard * n + coord
+    at = slot.reshape(1) - shard * local.shape[1]
+    held = (at >= 0) & (at < local.shape[1])
+    at = at.clamp(0, local.shape[1] - 1)
+    local.index_copy_(1, at, torch.where(held, x, local.index_select(1, at)))
 
 
 def _attention_decode(p, h, cl, cfg: ModelConfig, ctx: RunCtx, rope, index):
@@ -566,8 +600,8 @@ def _attention_decode(p, h, cl, cfg: ModelConfig, ctx: RunCtx, rope, index):
         cl["k"][rows, slot] = k[:, 0].to(cl["k"].dtype)
         cl["v"][rows, slot] = v[:, 0].to(cl["v"].dtype)
     else:
-        cl["k"].index_copy_(1, slot.reshape(1), k.to(cl["k"].dtype))
-        cl["v"].index_copy_(1, slot.reshape(1), v.to(cl["v"].dtype))
+        _write_step(cl["k"], slot, k.to(cl["k"].dtype))
+        _write_step(cl["v"], slot, v.to(cl["v"].dtype))
     o = decode_attention(q, cl["k"], cl["v"], kv_len,
                          backend=ctx.decode_backend)
     return L.out_proj(p, o)

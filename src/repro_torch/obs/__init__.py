@@ -8,7 +8,7 @@ from repro_torch.obs.callbacks import (FLEET_ROUND, SERVE_EVENT,  # noqa: F401
                                        ring_wire_bytes_per_device,
                                        serve_event)
 from repro_torch.obs.mfu import (DEVICE_PEAK_FLOPS,  # noqa: F401
-                                 counted_flops, mfu)
+                                 counted_flops, lowered_flops, mfu)
 from repro_torch.obs.profile import (capture, capture_step,  # noqa: F401
                                      profiler_available)
 from repro_torch.obs.regress import (GateReport, MetricSpec,  # noqa: F401

@@ -75,7 +75,7 @@ class RoundObserver:
     def wire_bytes_per_device(self, floats_on_wire: float,
                               comm_model: Optional[Any] = None) -> float:
         """Per-device gradient wire bytes this round: from the comm model when
-        one is attached (the reference's ``dist/calibrate.py``), analytic ring
+        one is attached (``repro_torch.dist.calibrate``), analytic ring
         formula otherwise — the same source the sim clock charges."""
         if comm_model is not None:
             return float(comm_model.bytes_for(floats_on_wire))

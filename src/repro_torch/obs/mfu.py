@@ -7,11 +7,19 @@ Table II hardware (one K80 GPU per edge device), a sim-time constant, so
 MFU reads as "fraction of the fleet's K80-seconds the committed gradients
 used".  It says nothing about the card the port runs on.
 
-The reference counts flops from the lowered HLO; the port counts them with
-``torch.utils.flop_counter.FlopCounterMode`` while the step runs once on
-``meta``-device copies of its arguments: no work on the card, no storage,
-and the caller's tensors are never touched.  Producers cache the count and
-only ask for it when a tracker is active, keeping the noop path free.
+The port has two counters, neither of which works on the card or touches
+the caller's tensors:
+
+* :func:`counted_flops` — ``torch.utils.flop_counter.FlopCounterMode``
+  while the step runs once on ``meta``-device copies of its arguments
+  (matrix products only).  ``obs/callbacks.py``'s trainer records use it,
+  so their pinned ``step_flops`` stay as they were.
+* :func:`lowered_flops` — the reference's counterpart: every op of the
+  program the step executes, counted by ``repro_torch.dist.hlo_cost``
+  (products, elementwise ops, reductions, scatters) on fake CPU copies.
+
+Producers cache the count and only ask for it when a tracker is active,
+keeping the noop path free.
 """
 from __future__ import annotations
 
@@ -49,6 +57,20 @@ def counted_flops(fn, *args) -> Optional[float]:
         return None
     flops = counter.get_total_flops()
     return float(flops) if flops else None
+
+
+def lowered_flops(fn, *args) -> Optional[float]:
+    """Flops of one call of ``fn(*args)``, from the aten program it runs
+    (``repro_torch.dist.hlo_cost``: ``analyze(record(fn, *args))``).
+    None when the program cannot run on fake CPU tensors (an op without a
+    fake kernel, a host read of a value): callers treat None as "flops
+    unavailable", never as an error, as the reference's contract says."""
+    from repro_torch.dist.hlo_cost import analyze, record
+    try:
+        program = record(fn, *args)
+    except (RuntimeError, NotImplementedError):
+        return None
+    return float(analyze(program)["flops"])
 
 
 def mfu(step_flops: Optional[float], dt_s: float, *,

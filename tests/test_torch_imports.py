@@ -7,12 +7,16 @@
   the streamdata slice: ``streamdata``, ``models/cnn.py``,
   ``serve/control.py``; the training launcher slice: ``train/step.py``,
   ``checkpoint``, ``launch/train.py``, ``obs/profile.py``,
-  ``obs/regress.py``; the training attention slice: ``launch/mesh.py``)
+  ``obs/regress.py``; the training attention slice: ``launch/mesh.py``;
+  the counting layer: ``dist/hlo_cost.py``, ``dist/hlo_analysis.py``,
+  ``dist/calibrate.py``, ``launch/dryrun.py``, ``launch/sweep.py``)
   and of ``chip_smoke.py`` finds no import of ``jax`` or of the ``repro``
   package.  The same scan over the examples' counterparts,
   ``examples/*_torch.py``, also finds no import of ``benchmarks``.
 * Every entry point runs on ``cuda`` unless asked for the CPU, and raises
-  where there is no card (these tests skip on a machine that has one);
+  where there is no card (these tests skip on a machine that has one),
+  but the counting layer's, which have no device (they record on fake CPU
+  tensors: ``COUNTING_ENTRY_POINTS`` says why);
   every kernel wrapper runs its plain version for CPU tensors only.
 * The configs are the reference's, copied unchanged: every registered
   architecture gives equal fields and derived values in both packages.
@@ -361,6 +365,48 @@ def test_configs_match_reference(arch):
         assert tc.param_count() == jc.param_count()
         assert (tc.param_count(active_only=True)
                 == jc.param_count(active_only=True))
+
+
+def test_scan_covers_the_counting_layer():
+    scanned = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in PORT_FILES[:-1]}
+    assert {"dist/hlo_cost.py", "dist/hlo_analysis.py", "dist/calibrate.py",
+            "launch/dryrun.py", "launch/sweep.py", "obs/mfu.py"} <= scanned
+
+
+# Exempt from the CUDA-by-default checks above: the counting layer's entry
+# points have no device.  They run the program once on fake CPU tensors
+# (``dist/hlo_cost.py::record``, on a fake process group where a mesh is
+# needed), which allocates nothing and runs nothing on any device, so there
+# is no card to default to.
+COUNTING_ENTRY_POINTS = (("repro_torch.dist.hlo_cost", "record"),
+                         ("repro_torch.dist.hlo_cost", "analyze"),
+                         ("repro_torch.dist.calibrate", "calibrate"),
+                         ("repro_torch.launch.dryrun", "run_one"),
+                         ("repro_torch.launch.dryrun", "main"),
+                         ("repro_torch.launch.sweep", "main"),
+                         ("repro_torch.obs.mfu", "lowered_flops"))
+
+
+@pytest.mark.parametrize("module,name", COUNTING_ENTRY_POINTS)
+def test_counting_entry_points_have_no_device(module, name):
+    """None takes a device or a ``--device`` flag; recording a CPU
+    tensor's program leaves it alone."""
+    import importlib
+    import inspect
+    fn = getattr(importlib.import_module(module), name)
+    assert "device" not in inspect.signature(fn).parameters
+    assert '"--device"' not in inspect.getsource(fn)
+
+
+def test_recording_touches_no_argument():
+    from repro_torch.dist.hlo_cost import record
+    x = torch.ones(3, 4)
+    meta = torch.empty(4, 2, device="meta")
+    prog = record(lambda a, b: (a.add_(1) @ b), x, meta)
+    assert torch.equal(x, torch.ones(3, 4))
+    assert [op.name for op in prog.ops] == ["aten.add_.Tensor",
+                                            "aten.mm.default"]
 
 
 def test_scan_covers_the_training_attention_slice():
