@@ -209,6 +209,24 @@ package.  Phases, each fatal on failure (exit code 1, no result line):
    shapes on a 256-rank fake group, each artifact complete, its flops
    above 0 and the train one with all-gathers and reduce-scatters.  (c)
    and (d) run in their own processes while (a) and (b) run;
+8l. (after 8k) sharded serving: (a) qwen2-0.5b at full width and depth
+   (phase 6's params, prompts and argv; f32) with params and cache placed
+   by ``dist/sharding.py`` on a one-rank NCCL group's (1, 1) mesh:
+   ``prefill_cache`` (``flash_attention`` on local shards) and 32 greedy
+   ``decode_step``s (``flash_decode`` with ``return_lse`` on local shards,
+   merged by the log-sum-exp combine), counters set to 0 just before and
+   read just after, against the same run without a mesh: tokens equal to
+   it and to phase 6's, logits bit-identical at every step (on one rank
+   every collective is the identity and the combine exact); then both
+   runs in turns (unsharded, sharded, sharded, unsharded) with their
+   prefill ms and decode ms a step; (b) ``flash_decode(return_lse=True)``
+   against ``flash_decode_ref(return_lse=True)`` at LSE_CASES (qwen2-0.5b's
+   decode shape, recurrentgemma-2b's hd 256 g 10 at b 1 and b 8; f32 and
+   bf16): the lse within TOL, o bit-identical with and without the flag;
+   (c) ``python -m repro_torch.launch.dryrun`` for one combination of each
+   class DTensor once refused (DRYRUN_CLASSES) on a 256-rank fake group,
+   in their own processes started after (b) and collected after 8i, each
+   artifact complete with no unknown op;
 8i. the five ``examples/*_torch.py``, each in a fresh interpreter with
    ``PYTHONPATH=src`` in a temporary working directory: quickstart (the
    loss falls), train_e2e at its default and ``--full --steps 5``
@@ -478,6 +496,23 @@ DRYRUN_KEYS = ("arch", "shape", "mesh", "chips", "attn_mode",
                "collective", "memory", "roofline", "model_flops_per_chip",
                "useful_flops_ratio", "params_total", "params_active",
                "n_micro", "grad_wire_bf16", "compile_s")
+# phase 8l: sharded serving on a one-rank mesh (phase 6's run), the lse
+# output of flash_decode at (b, S, h, kv, hd, kv_len per slot), and one dry
+# run for each class of combination that DTensor refused before the port
+# ran its sharded programs on local shards (ROADMAP.md §3): (class, arch,
+# shape)
+LSE_CASES = {"qwen2-0.5b": (8, 160, 14, 2, 64,
+                            [160, 1, 0, 63, 64, 65, 100, 159]),
+             "recurrentgemma-2b b 1": (1, 2048, 10, 1, 256, [2048]),
+             "recurrentgemma-2b b 8": (8, 2048, 10, 1, 256,
+                                       [2048, 0, 1, 255, 256, 257, 1500,
+                                        2047])}
+DRYRUN_CLASSES = (("A", "internlm2-20b", "train_4k"),
+                  ("B", "internlm2-20b", "decode_32k"),
+                  ("C", "qwen2-0.5b", "long_500k"),
+                  ("D", "qwen2-vl-2b", "prefill_32k"),
+                  ("E", "xlstm-125m", "decode_32k"))
+DRYRUN_TIMEOUT_S = 420
 KERNEL_SOURCES = ["flash_attention", "flash_decode", "block_topk",
                   "fused_sgdm", "scatter_agg"]
 KERNEL_NAMES = ("flash_attention", "flash_decode", "flash_decode_paged",
@@ -3221,6 +3256,199 @@ def _count_and_time(torch, mods, card, hlo_analysis, hlo_cost,
     return launched
 
 
+# phase 8l: sharded serving
+
+
+def _greedy(torch, dec, place, params, prompts, cache, cfg, ctx, gen):
+    """Prefill ``prompts`` into ``cache`` and take ``gen`` greedy steps;
+    ``place(t)`` puts a token tensor where the params are.  -> (logits of
+    the prefill and of each step as plain tensors, tokens (b, gen), prefill
+    ms, decode ms by step): synchronised host clock."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = dec.prefill_cache(params, place(prompts), cache, cfg,
+                                      ctx)
+    out = [_whole(logits)]
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    toks, walls = [], []
+    for _ in range(gen):
+        tok = torch.argmax(out[-1], -1).to(torch.int32)[:, None]
+        toks.append(tok)
+        t0 = time.perf_counter()
+        logits, cache = dec.decode_step(params, cache, place(tok), cfg, ctx)
+        out.append(_whole(logits))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return out, torch.cat(toks, 1), prefill_ms, walls
+
+
+def sharded_serving_path(torch, mods, serve, dec, res6, card):
+    """Phase 8l (a) and (b): serving on a (1, 1) mesh of a one-rank NCCL
+    group against the same run without a mesh, bit for bit; the lse
+    output.  Then starts (c), the dry runs of the repaired classes, which
+    :func:`finish_dry_classes` collects.  Returns (the sharded run's launch
+    counts, the pending dry runs)."""
+    import tempfile
+    args = serve.parse_args(SERVE_ARGV)
+    log(f"# phase 8l: sharded serving, qwen2-0.5b full width and depth, "
+        f"{args.batch} x {args.prompt_len}, {args.gen} greedy steps, a "
+        "one-rank NCCL group's (1, 1) mesh; the lse output; dry runs of the "
+        "repaired classes")
+    launched = _sharded_serving(torch, mods, serve, dec, res6, card, args)
+    check_lse(torch, mods.fd)
+    # started once (a) is timed, so its host clock does not share the CPU
+    tmp = tempfile.mkdtemp(prefix="phase8l_")
+    dry = {(cls, arch, shape): _start(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", tmp], ROOT)
+        for cls, arch, shape in DRYRUN_CLASSES}
+    return launched, (tmp, dry)
+
+
+def finish_dry_classes(pending) -> None:
+    """(c) of phase 8l: wait for the dry runs, each artifact complete with
+    no unknown op; every process stopped and the directory removed
+    whatever happens."""
+    tmp, dry = pending
+    try:
+        for (cls, arch, shape), proc in dry.items():
+            out = _finish(proc, f"the dry run of {arch} {shape}",
+                          DRYRUN_TIMEOUT_S, phase="8l (c)")
+            ok = [line for line in out.splitlines() if line.startswith("OK")]
+            rec = json.loads((Path(tmp) / f"{arch}__{shape}__16x16.json"
+                              ).read_text())
+            missing = [k for k in DRYRUN_KEYS if k not in rec]
+            coll = rec["collective"]
+            log(f"  8l (c) class {cls}: {ok[-1] if ok else out[-300:]}")
+            log(f"      flops {rec['flops_per_chip']:.6g}, bytes "
+                f"{rec['bytes_per_chip']:.6g}, wire {coll['total']:.6g} a "
+                f"chip; n_micro {rec['n_micro']}; unknown ops "
+                f"{rec['unknown_ops'] or 'none'}; recorded in "
+                f"{rec['record_s']:.1f} s")
+            if (missing or not ok or not rec["flops_per_chip"] > 0
+                    or rec["unknown_ops"]):
+                fail(f"phase 8l (c): the {arch} {shape} artifact lacks "
+                     f"{missing}, counts no flops or has unknown ops")
+    finally:
+        stop_dry_classes(pending)
+
+
+def stop_dry_classes(pending) -> None:
+    """Kill any dry run of phase 8l (c) still running; remove its
+    directory."""
+    import shutil
+    tmp, dry = pending
+    for proc in dry.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _sharded_serving(torch, mods, serve, dec, res6, card, args):
+    """(a) of phase 8l."""
+    import torch.distributed as dist
+    from repro_torch.dist import (batch_specs, cache_specs, distribute,
+                                  make_plan, make_run_ctx, param_specs)
+    from repro_torch.launch.mesh import make_test_mesh
+    cfg, ctx, params, prompts, _ = serve.setup(args)
+    if not torch.equal(prompts, res6["prompts"]):
+        fail("phase 8l: prompts differ from phase 6's")
+    b, gen, S = args.batch, args.gen, args.prompt_len + args.gen
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"))
+        plan = make_plan(mesh)
+        sctx = make_run_ctx(cfg, plan, compute_dtype=torch.float32,
+                            param_dtype=torch.float32, chunk_q=ctx.chunk_q,
+                            chunk_k=ctx.chunk_k, device=DEVICE)
+        pd = distribute(params, param_specs(params, cfg, plan), mesh)
+
+        def place(t):
+            return distribute({"t": t}, batch_specs(cfg, plan, {"t": t}),
+                              mesh)["t"]
+
+        def placed_cache():
+            cache = dec.init_cache(cfg, b, S, sctx)
+            return distribute(cache, cache_specs(cfg, plan, cache), mesh)
+
+        runs = {"unsharded": lambda: _greedy(
+                    torch, dec, lambda t: t, params, prompts,
+                    dec.init_cache(cfg, b, S, ctx), cfg, ctx, gen),
+                "sharded": lambda: _greedy(torch, dec, place, pd, prompts,
+                                           placed_cache(), cfg, sctx, gen)}
+        log(f"  mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on "
+            f"{mesh.device_type} ({dist.get_backend()}); attn_mode "
+            f"{sctx.attn_mode}")
+        plain = runs["unsharded"]()
+        reset(mods)
+        sharded = runs["sharded"]()
+        torch.cuda.synchronize()
+        launched = counts(mods)
+        want = expect(flash_attention=cfg.num_layers,
+                      flash_decode=cfg.num_layers * gen)
+        same = [torch.equal(x, y) for x, y in zip(sharded[0], plain[0])]
+        worst = max(max_err(x, y) for x, y in zip(sharded[0], plain[0]))
+        as6 = torch.equal(sharded[1].long(), res6["tokens"].long())
+        log(f"  (a) launches on the sharded run {launched}; tokens equal to "
+            f"the unsharded run's {torch.equal(sharded[1], plain[1])} and to "
+            f"phase 6's {as6}; logits "
+            f"bit-identical at {sum(same)} of {len(same)} points (prefill "
+            f"and each step), largest |diff| {worst:.3e}")
+        if launched != want:
+            fail(f"phase 8l (a): the sharded run launched {launched}, "
+                 f"expected {want}")
+        if not (all(same) and torch.equal(sharded[1], plain[1]) and as6):
+            fail(f"phase 8l (a): sharded serving parts from the unsharded "
+                 f"run (largest logit |diff| {worst:.3e})")
+        walls = {"unsharded": [], "sharded": []}
+        prefills = {"unsharded": [], "sharded": []}
+        for label in ("unsharded", "sharded", "sharded", "unsharded"):
+            _, _, pre, w = runs[label]()
+            prefills[label].append(pre)
+            walls[label] += w[1:]            # the first step apart: warm-up
+        med = {k: statistics.median(v) for k, v in walls.items()}
+        log(f"  (a) in turns (unsharded, sharded, sharded, unsharded): "
+            "prefill ms unsharded "
+            + ", ".join(f"{t:.1f}" for t in prefills["unsharded"])
+            + ", sharded "
+            + ", ".join(f"{t:.1f}" for t in prefills["sharded"])
+            + f"; decode ms a step (median of steps 2-{gen} of both turns) "
+            f"unsharded {med['unsharded']:.2f}, sharded "
+            f"{med['sharded']:.2f}, ratio "
+            f"{med['sharded'] / med['unsharded']:.3f}  [{card}]")
+    finally:
+        dist.destroy_process_group()
+    del params, pd
+    torch.cuda.empty_cache()
+    return launched
+
+
+def check_lse(torch, fd):
+    """(b) of phase 8l: the kernel's lse against the plain version's at
+    LSE_CASES, f32 and bf16; o bit-identical with and without it."""
+    gen = torch.Generator(device=DEVICE).manual_seed(95)
+    for label, (b, S, h, kv, hd, lens) in LSE_CASES.items():
+        for dt_name, dt in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            q, k, v = (rand(torch, shape, dt, gen) for shape in
+                       ((b, 1, h, hd), (b, S, kv, hd), (b, S, kv, hd)))
+            kvl = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+            o = fd.flash_decode(q, k, v, kvl)
+            o2, lse = fd.flash_decode(q, k, v, kvl, return_lse=True)
+            _, ref = fd.flash_decode_ref(q, k, v, kvl, return_lse=True)
+            err = max_err(lse, ref)
+            same = torch.equal(o, o2)
+            log(f"  (b) lse at {label} (b {b}, S {S}, h {h}, kv {kv}, hd "
+                f"{hd}, kv_len {lens}), {dt_name}: max |lse - plain| "
+                f"{err:.3e} (bound {TOL[dt_name]:g}); o bit-identical "
+                f"without the flag: {same}")
+            if not (err <= TOL[dt_name] and same):
+                fail(f"phase 8l (b): lse at {label} {dt_name}")
+
+
 # the example run in a fresh interpreter as __main__, then the wrappers'
 # launch counts on a line of their own
 _COUNTED_RUN = """
@@ -3569,6 +3797,14 @@ def time_decode(torch, fd, gen):
         dec["bound_ms"], dec["bound_by"] = bound(
             4 * 2 * qd.numel() + kv_bytes + 4 * b, 4 * hd * b * h * kv_len,
             "float32")
+        if not pre:
+            # the same launch writing its log-sum-exp beside o (phase 8l's
+            # sharded decode), timed in the same call
+            dec["lse_ms"] = device_ms(torch, lambda: fd.flash_decode(
+                qd, kc, vc, kvl, return_lse=True))
+            dec["lse_bound_ms"], dec["lse_bound_by"] = bound(
+                4 * 2 * qd.numel() + kv_bytes + 4 * b + 4 * b * h,
+                4 * hd * b * h * kv_len, "float32")
         del kc, vc, kct, vct
 
         ncols, rows = (12, 80) if pre == "" else (S // pg, b * S // pg)
@@ -4127,7 +4363,7 @@ def main() -> None:
         None, get_config(TRAIN["arch"]), device="meta")))
     errs = check_kernels(torch, fa, fd)
     errs.update(check_train_kernels(torch, bt, sa, n_train))
-    launched, _ = serve_offline(torch, mods, serve, dec)
+    launched, res6 = serve_offline(torch, mods, serve, dec)
     paths = {f"6 {name}": n for name, n in
              serve_zoo(torch, mods, serve, dec, get_config).items()}
     paths.update(serve_zoo_rest(torch, mods, serve, dec, get_config))
@@ -4162,7 +4398,15 @@ def main() -> None:
     paths["8j sharded make_train_step"] = sharded_step_path(torch, mods,
                                                             card)
     paths["8k counted make_train_step"] = counting_path(torch, mods, card)
-    paths["8i serve_batched_torch.py"] = examples_path(torch, mods, card)
+    paths["8l sharded serving"], pending = sharded_serving_path(
+        torch, mods, serve, dec, res6, card)
+    del res6
+    try:
+        # 8l (c)'s dry runs run on the host while the examples run
+        paths["8i serve_batched_torch.py"] = examples_path(torch, mods, card)
+        finish_dry_classes(pending)
+    finally:
+        stop_dry_classes(pending)
     times.update(time_kernels(torch, fa, fd))
     zoo_times = time_zoo_kernels(
         torch, fa, fd, zoo_cfg(get_config, "recurrentgemma-2b"),
@@ -4202,6 +4446,10 @@ def main() -> None:
         log(f"  {name}: device {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
             f"ms, library {lib}, bound {t['bound_ms']:.5f} ms "
             f"({t['bound_by']}); {extra}  [{card}]")
+        if "lse_ms" in t:
+            log(f"  {name} with return_lse at the serving shape: device "
+                f"{t['lse_ms']:.4f} ms (o alone {t['ms']:.4f} ms), bound "
+                f"{t['lse_bound_ms']:.5f} ms ({t['lse_bound_by']})  [{card}]")
         if "long_ms" in t:
             log(f"  {name} at {t['long_shape']}: device {t['long_ms']:.4f} "
                 f"ms, plain {t['long_plain_ms']:.4f} ms, library "

@@ -18,7 +18,8 @@
 //   q, o (b, 1, h, hd)   contiguous: k, v caches (b, S, kv, hd)
 //   paged: k, v pools (rows, pg, kv, hd), bt (b, ncols) int32, S = ncols * pg
 //   kv_len (b,) int32
-// contiguous and 16-byte aligned, f32 or bf16.  The kernel writes only o.
+// contiguous and 16-byte aligned, f32 or bf16.  The kernel writes o and,
+// where the caller passes it (contiguous entry only), lse (b, h) f32.
 // The g = h / kv query heads of a kv head share every K/V row read (g = 7
 // for qwen2-0.5b; a runtime value up to GMAX).
 //
@@ -28,7 +29,12 @@
 // uniform average; keys past the stream score -inf and add nothing.
 // Scores, p and the online softmax (m, l, acc) stay in f32 (in base 2:
 // s * scale * log2 e and exp2); the output divides by max(l, 1e-30) once,
-// after the splits are combined.
+// after the splits are combined.  The optional lse is the log-sum-exp of
+// the slot's scaled scores in natural units, m * ln 2 + ln l, from the
+// combined (m, l) of the same launch: what merges decode over chunks of
+// the sequence held by different ranks (models/attention.py).  A slot with
+// no valid key gets NEG_INF + ln l, which is NEG_INF in f32, as the plain
+// version's log-sum-exp of NEG_INF scores.
 //
 // What bounds it on an H100.  Decode reads each streamed K/V row once and
 // does 4 * hd operations per (query head, key): bound by bytes.  At the
@@ -46,7 +52,9 @@
 //     after a cluster barrier every rank reads the ranks' (m, l) per head
 //     through distributed shared memory, and rank r combines, in rank order,
 //     the acc of outputs r * NT + i, (r + nsplit) * NT + i, ... and writes
-//     them.  No global scratch, no atomics, no second launch.
+//     them.  No global scratch, no atomics, no second launch.  Every rank
+//     computes the combined (m, l) of each head; rank 0 alone writes the
+//     lse, so each (slot, head) is stored once.
 //   * Loads that overlap compute: each K/V row is one contiguous run of hd
 //     elements, copied in 16-byte cp.async pieces into a ring of STAGES
 //     stages of KT keys (16 KB of K and of V each); AHEAD stages are in
@@ -194,13 +202,14 @@ __device__ __forceinline__ float warp_sum(float x) {
 // Scores, m and the combine run in base 2: s * scale * log2(e) and exp2,
 // so p = exp2(s2 - m2) = exp(s - m).  Masked keys score NEG_INF either way.
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <typename T, int HD, int GB, typename Rows>
 __global__ void __launch_bounds__((Geo<T, HD, GB>::NT), 1)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ kv_len,
-                    T* __restrict__ o, Rows rows, int S, int h, int kvh,
-                    int keys_per_split, float scale) {
+                    T* __restrict__ o, float* __restrict__ lse, Rows rows,
+                    int S, int h, int kvh, int keys_per_split, float scale) {
   using G = Geo<T, HD, GB>;
   constexpr int KT = G::KT, VE = G::VE, CH = G::CH, ROW = G::ROW;
   constexpr int QROW = G::QROW, PROW = G::PROW, DC = G::DC, KG = G::KG;
@@ -446,6 +455,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         L = fmaf(*cluster.map_shared_rank(l_s + tid, r), w, L);
       }
     L_s[tid] = fmaxf(L, 1e-30f);
+    if (lse != nullptr && split == 0)
+      lse[(long)slot * h + (long)kh * g + tid] =
+          n_valid > 0 ? fmaf(M, LN2, logf(L)) : NEG_INF + logf(L);
   }
   __syncthreads();
   T* ob = o + ((long)slot * h + (long)kh * g) * HD;
@@ -466,9 +478,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD, int GB, typename Rows>
 cudaError_t launch_gb(const void* q, const void* k, const void* v,
-                      const void* kv_len, void* o, Rows rows, int b, int S,
-                      int h, int kvh, int nsplit, int keys, float scale,
-                      cudaStream_t stream) {
+                      const void* kv_len, void* o, float* lse, Rows rows,
+                      int b, int S, int h, int kvh, int nsplit, int keys,
+                      float scale, cudaStream_t stream) {
   constexpr size_t smem = Geo<T, HD, GB>::BYTES;
   // raised once per instance: the attribute holds for every later launch
   // (one card per process)
@@ -491,8 +503,8 @@ cudaError_t launch_gb(const void* q, const void* k, const void* v,
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, flash_decode_kernel<T, HD, GB, Rows>, static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(kv_len), static_cast<T*>(o), rows, S, h, kvh,
-      keys, scale);
+      static_cast<const int*>(kv_len), static_cast<T*>(o), lse, rows, S, h,
+      kvh, keys, scale);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -500,14 +512,14 @@ cudaError_t launch_gb(const void* q, const void* k, const void* v,
 // The instance whose head bound GB (8 or 16) holds the group g = h / kvh.
 template <typename T, int HD, typename Rows>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* kv_len, void* o, Rows rows, int b, int S,
-                   int h, int kvh, int nsplit, int keys, float scale,
+                   const void* kv_len, void* o, float* lse, Rows rows, int b,
+                   int S, int h, int kvh, int nsplit, int keys, float scale,
                    cudaStream_t stream) {
   if (h / kvh <= 8)
-    return launch_gb<T, HD, 8>(q, k, v, kv_len, o, rows, b, S, h, kvh, nsplit,
-                               keys, scale, stream);
-  return launch_gb<T, HD, 16>(q, k, v, kv_len, o, rows, b, S, h, kvh, nsplit,
-                              keys, scale, stream);
+    return launch_gb<T, HD, 8>(q, k, v, kv_len, o, lse, rows, b, S, h, kvh,
+                               nsplit, keys, scale, stream);
+  return launch_gb<T, HD, 16>(q, k, v, kv_len, o, lse, rows, b, S, h, kvh,
+                              nsplit, keys, scale, stream);
 }
 
 // Splits that the kernel can run: 1..MAX_SPLIT of `keys` keys each, a
@@ -521,21 +533,23 @@ bool split_ok(int S, int nsplit, int keys) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  kv_len: (b,) int32 on the device.
+// lse: (b, h) f32 on the device, or null for o alone.
 // scale: the softmax scale, hd ** -0.5 rounded to float by the caller.
 // nsplit, keys: the split of the caller's split_geometry(b, kvh, S).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int flash_decode(const void* q, const void* k, const void* v,
-                            const void* kv_len, void* o, int b, int S, int h,
-                            int kvh, int hd, int dtype, int nsplit, int keys,
-                            float scale, void* stream) {
+                            const void* kv_len, void* o, void* lse, int b,
+                            int S, int h, int kvh, int hd, int dtype,
+                            int nsplit, int keys, float scale, void* stream) {
   if (b <= 0 || S <= 0 || kvh <= 0 || h % kvh != 0 || h / kvh > GMAX ||
       !split_ok(S, nsplit, keys))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, hd, [&](auto* tag, auto hd_c) {
     using T = std::remove_pointer_t<decltype(tag)>;
-    return launch<T, decltype(hd_c)::value>(q, k, v, kv_len, o, Slots{S}, b,
-                                            S, h, kvh, nsplit, keys, scale, s);
+    return launch<T, decltype(hd_c)::value>(
+        q, k, v, kv_len, o, static_cast<float*>(lse), Slots{S}, b, S, h, kvh,
+        nsplit, keys, scale, s);
   });
 }
 
@@ -555,8 +569,8 @@ extern "C" int flash_decode_paged(const void* q, const void* k, const void* v,
   const Pages pages{static_cast<const int*>(bt), ncols, pg};
   return dispatch(dtype, hd, [&](auto* tag, auto hd_c) {
     using T = std::remove_pointer_t<decltype(tag)>;
-    return launch<T, decltype(hd_c)::value>(q, k, v, kv_len, o, pages, b,
-                                            ncols * pg, h, kvh, nsplit, keys,
-                                            scale, s);
+    return launch<T, decltype(hd_c)::value>(q, k, v, kv_len, o, nullptr,
+                                            pages, b, ncols * pg, h, kvh,
+                                            nsplit, keys, scale, s);
   });
 }

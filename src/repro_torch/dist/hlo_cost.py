@@ -77,10 +77,11 @@ _FLOP1 = {
     "maximum", "minimum", "clamp", "clamp_min", "clamp_max", "where",
     "eq", "ne", "lt", "le", "gt", "ge", "logical_and", "logical_or",
     "logical_not", "logical_xor", "bitwise_and", "bitwise_or",
-    "bitwise_xor", "bitwise_not", "floor", "ceil", "round", "trunc",
-    "frac", "remainder", "fmod", "isfinite", "isnan", "isinf", "reciprocal",
-    "square", "relu", "masked_fill", "copysign", "nan_to_num", "signbit",
-    "floor_divide", "threshold_backward", "hardtanh",
+    "bitwise_xor", "bitwise_not", "__and__", "__or__", "__xor__", "floor",
+    "ceil", "round", "trunc", "frac", "remainder", "fmod", "isfinite",
+    "isnan", "isinf", "reciprocal", "square", "relu", "masked_fill",
+    "copysign", "nan_to_num", "signbit", "floor_divide",
+    "threshold_backward", "hardtanh",
 }
 # billed as transcendentals, NOT flops (matches XLA's 'flops' property)
 _TRANSCENDENTAL = {
@@ -98,6 +99,7 @@ _POINTWISE = {
     "gelu": (7, 1),                  # tanh approximation
     "gelu_backward": (14, 2),
     "softplus": (1, 2),              # log1p(exp(x))
+    "softplus_backward": (3, 1),     # g / (1 + exp(-x))
     "lerp": (3, 0),
     "addcmul": (2, 0),
     "addcdiv": (2, 0),
@@ -129,11 +131,11 @@ _MOVE = {
     "copy", "_to_copy", "clone", "cat", "stack", "index", "_unsafe_index",
     "index_select", "gather", "embedding", "index_copy", "slice_scatter",
     "select_scatter", "as_strided_scatter", "select_backward",
-    "slice_backward", "index_select_backward", "constant_pad_nd", "repeat",
-    "repeat_interleave", "flip", "roll", "tril", "triu", "masked_select",
-    "masked_scatter", "scatter", "sort", "argsort", "topk", "nonzero",
-    "fill", "zero", "bernoulli", "native_dropout", "normal", "uniform",
-    "one_hot", "searchsorted", "bucketize",
+    "slice_backward", "index_select_backward", "constant_pad_nd", "pad",
+    "repeat", "repeat_interleave", "flip", "roll", "tril", "triu",
+    "masked_select", "masked_scatter", "scatter", "sort", "argsort", "topk",
+    "nonzero", "fill", "zero", "bernoulli", "native_dropout", "normal",
+    "uniform", "one_hot", "searchsorted", "bucketize",
 }
 
 # collectives: c10d ops take their billed tensors first and a process

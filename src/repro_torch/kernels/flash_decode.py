@@ -10,11 +10,17 @@ addresses a K/V row; the source's header says what bounds it and how.
 * :func:`flash_decode` / :func:`flash_decode_paged` — the wrappers.  For
   CPU tensors they run the plain version; for CUDA tensors they launch the
   kernel or raise, never fall back.  ``launches`` / ``paged_launches``
-  count their kernel launches.
+  count their kernel launches.  They take plain tensors: a ``DTensor``
+  raises ``TypeError`` (a mesh decodes on each rank's local shards,
+  ``models/attention.py::decode_attention``).  ``flash_decode(...,
+  return_lse=True)`` also returns the log-sum-exp of each (slot, head)'s
+  scaled scores, (b, h) f32, from the same launch: what merges decode over
+  chunks of the sequence held by different ranks.
 * :func:`flash_decode_ref` — the plain PyTorch version, the reference's
   ``decode_attention`` jax path: f32 scores, ``kv_len`` masking, softmax,
   then ``p`` cast to the cache dtype for the PV product (the kernel keeps
-  ``p`` in f32, so the two differ by bf16 rounding on bf16 caches).
+  ``p`` in f32, so the two differ by bf16 rounding on bf16 caches); the
+  log-sum-exp of the same masked scores with ``return_lse``.
 * :func:`flash_decode_paged_ref` — the reference's own oracle of the paged
   kernel: gather ``pool[bt]`` into the contiguous view, then
   :func:`flash_decode_ref`.
@@ -32,6 +38,7 @@ import ctypes
 
 import torch
 
+from repro_torch import is_dtensor
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (DTYPES, NEG_INF, check_aligned,
                                          check_launch, refuse_grad)
@@ -52,8 +59,10 @@ def _kv_len_vector(kv_len, b: int, device) -> torch.Tensor:
     return kvl.expand(b).contiguous()
 
 
-def flash_decode_ref(q, k_cache, v_cache, kv_len):
-    """Plain PyTorch version of the kernel (any device)."""
+def flash_decode_ref(q, k_cache, v_cache, kv_len, return_lse: bool = False):
+    """Plain PyTorch version of the kernel (any device); with
+    ``return_lse``, (o, the log-sum-exp (b, h) f32 of the masked scaled
+    scores)."""
     b, _, h, hd = q.shape
     _, S, kvh, _ = k_cache.shape
     g = h // kvh
@@ -65,7 +74,10 @@ def flash_decode_ref(q, k_cache, v_cache, kv_len):
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype), v_cache)
-    return o.reshape(b, 1, h, hd)
+    o = o.reshape(b, 1, h, hd)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(b, h)
+    return o
 
 
 def flash_decode_paged_ref(q, k_pool, v_pool, bt, kv_len):
@@ -95,10 +107,20 @@ def split_geometry(b: int, kvh: int, S: int) -> tuple:
     return -(-units // per), per * SPLIT_UNIT
 
 
-_ARGTYPES = {"flash_decode": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+_ARGTYPES = {"flash_decode": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p],
              "flash_decode_paged": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_void_p]}
+
+
+def refuse_dtensor(name: str, *tensors) -> None:
+    """Raise ``TypeError`` if any of ``tensors`` is a ``DTensor``: it has
+    no storage of its own to launch on, and the plain version must not stand
+    in for the kernel on the card."""
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(f"{name} takes plain tensors, not DTensors: call it "
+                        "on each rank's local shards (decode_attention in "
+                        "models/attention.py does so for DTensor caches)")
 
 
 def _check(q, k_cache, v_cache) -> None:
@@ -118,16 +140,20 @@ def _check(q, k_cache, v_cache) -> None:
     check_aligned(q=q, k_cache=k_cache, v_cache=v_cache)
 
 
-def flash_decode(q, k_cache, v_cache, kv_len):
-    """q (b, 1, h, hd); caches (b, S, kv, hd) -> (b, 1, h, hd).
+def flash_decode(q, k_cache, v_cache, kv_len, return_lse: bool = False):
+    """q (b, 1, h, hd); caches (b, S, kv, hd) -> (b, 1, h, hd), and with
+    ``return_lse`` the log-sum-exp (b, h) f32 of each (slot, head)'s masked
+    scaled scores beside it, written by the same launch.
 
-    The kernel on a CUDA tensor, the plain version on a CPU tensor.  No
-    backward: raises if autograd would need one (``refuse_grad``).
+    The kernel on a CUDA tensor, the plain version on a CPU tensor; a
+    ``DTensor`` raises ``TypeError``.  No backward: raises if autograd would
+    need one (``refuse_grad``).
     """
     global launches
+    refuse_dtensor("flash_decode", q, k_cache, v_cache)
     refuse_grad("flash_decode", q, k_cache, v_cache)
     if q.device.type == "cpu":
-        return flash_decode_ref(q, k_cache, v_cache, kv_len)
+        return flash_decode_ref(q, k_cache, v_cache, kv_len, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_decode for device {q.device}")
     _check(q, k_cache, v_cache)
@@ -136,16 +162,19 @@ def flash_decode(q, k_cache, v_cache, kv_len):
     kvl = _kv_len_vector(kv_len, b, q.device)
     o = torch.empty_like(q)
     check_aligned(o=o)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = _build.load("flash_decode", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_decode(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            kvl.data_ptr(), o.data_ptr(), b, S, h, kvh, hd, DTYPES[q.dtype],
-            *split_geometry(b, kvh, S), hd ** -0.5, stream)
+            kvl.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, S, h, kvh, hd,
+            DTYPES[q.dtype], *split_geometry(b, kvh, S), hd ** -0.5, stream)
     _build.check(lib, err, "flash_decode")
     launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 def _check_paged(q, k_pool, v_pool, bt) -> None:
@@ -175,13 +204,15 @@ def flash_decode_paged(q, k_pool, v_pool, bt, kv_len):
 
     The slot's key j is ``pool[bt[slot, j // pg], j % pg]``; ``kv_len``
     counts keys over the logical length ``S = ncols * pg``.  The kernel on a
-    CUDA tensor, the plain version on a CPU tensor.  ``bt``'s entries must
+    CUDA tensor, the plain version on a CPU tensor, ``TypeError`` on a
+    ``DTensor`` (paged serving runs on one device).  ``bt``'s entries must
     be rows of the pools (the page tables of ``models/decode.py`` guarantee
     it; the kernel does not check).  Pools may be views of a stacked unit
     cache (``take``), as long as each is contiguous and starts on a 16-byte
     boundary (``check_aligned``).  No backward.
     """
     global paged_launches
+    refuse_dtensor("flash_decode_paged", q, k_pool, v_pool, bt)
     refuse_grad("flash_decode_paged", q, k_pool, v_pool)
     if q.device.type == "cpu":
         return flash_decode_paged_ref(q, k_pool, v_pool, bt, kv_len)

@@ -183,13 +183,8 @@ def record_step(cfg: ModelConfig, shape: InputShape, mesh,
     pattern = cfg.pattern_for_long_context() if long_ctx else None
 
     def serve_step(params, cache, batch):
-        # the decode path is not mesh-aware: its host-made tensors (RoPE
-        # frequencies, indices) join the DTensors as replicated
-        from torch.distributed.tensor.experimental import (
-            implicit_replication)
-        with implicit_replication():
-            return decode_step(params, cache, batch["tokens"], cfg, ctx,
-                               pattern=pattern)
+        return decode_step(params, cache, batch["tokens"], cfg, ctx,
+                           pattern=pattern)
 
     return hlo_cost.record(serve_step, params, cache, toks)
 

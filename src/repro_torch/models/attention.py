@@ -31,12 +31,14 @@ from typing import Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch import is_dtensor
 from repro_torch.kernels._common import NEG_INF
 from repro_torch.kernels.flash_attention import (KINDS, check_window,
                                                  flash_attention)
 from repro_torch.kernels.flash_decode import (flash_decode, flash_decode_paged,
                                               flash_decode_paged_ref,
                                               flash_decode_ref)
+from repro_torch.models.layers import shard_index
 
 BACKENDS = ("kernel", "torch")
 
@@ -292,18 +294,88 @@ def context_parallel_attention(q, k, v, mesh, cp_axis: str, *, kind: str,
         backend="torch")
 
 
-def decode_attention(q, k_cache, v_cache, kv_len, *, backend: str = "kernel"):
+def decode_attention(q, k_cache, v_cache, kv_len, *, backend: str = "kernel",
+                     return_lse: bool = False, seq_axis: str = "model"):
     """Single-token attention. q (b, 1, h, hd); caches (b, S, kv, hd).
 
     ``kv_len`` is a scalar (whole-batch cache length) or a (b,) vector of
     per-slot lengths.  No ``kind``/``window``: a sliding window is carried by
     the ring cache, whose storage order does not matter after RoPE.
+    ``return_lse`` also returns the log-sum-exp (b, h) f32 of each (slot,
+    head)'s masked scaled scores.
+
+    ``DTensor`` caches (a mesh; ``dist/sharding.py::cache_specs`` puts the
+    batch over the data axes and the sequence over ``seq_axis``) decode on
+    each rank's local shards: :func:`_sharded_decode`.
     """
+    if is_dtensor(k_cache):
+        if return_lse:
+            raise ValueError("decode_attention on DTensor caches returns o "
+                             "alone")
+        return _sharded_decode(q, k_cache, v_cache, kv_len, backend,
+                               seq_axis)
     if backend == "kernel":
-        return flash_decode(q, k_cache, v_cache, kv_len)
+        return flash_decode(q, k_cache, v_cache, kv_len, return_lse)
     if backend == "torch":
-        return flash_decode_ref(q, k_cache, v_cache, kv_len)
+        return flash_decode_ref(q, k_cache, v_cache, kv_len, return_lse)
     raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+
+
+def _sharded_decode(q, k_cache, v_cache, kv_len, backend: str,
+                    seq_axis: str):
+    """Flash-decoding across ranks.  Each rank attends its batch rows, with
+    every head, over its own chunk of the sequence (q is gathered whole
+    over the chunks' mesh dims: it is one token a slot), at ``kv_len_local
+    = clamp(kv_len - r * S_local, 0, S_local)`` for chunk r, through
+    :func:`decode_attention` with ``return_lse`` (the kernel on the card).
+    The chunks' results merge by their log-sum-exp, in f32: m = max over
+    ranks of lse, o = sum e^(lse - m) o_r / sum e^(lse - m), one all-reduce
+    of the max and one of the weighted sums (o and weight side by side).
+
+    The heads stay whole on every rank, so the GQA grouping never meets a
+    sharded dim.  The reference's ``kv_len <= 0`` (the uniform average of
+    all S keys, ``NEG_INF`` being finite) holds: a chunk with no valid key
+    returns its uniform average at lse ``NEG_INF``, whose weight is 0 beside
+    any chunk with a valid key, and equal beside equal chunks that have
+    none.  A mesh dim of one rank on ``seq_axis`` holds the sequence as one
+    chunk and combines exactly (e^0 = 1, a division by 1); elsewhere the
+    merge runs over the mesh dims that shard the sequence.
+    -> o (b, 1, h, hd), a ``DTensor`` with the batch as the cache's."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, places = k_cache.device_mesh, tuple(k_cache.placements)
+    if v_cache.placements != k_cache.placements or any(
+            p.is_shard() and p.dim not in (0, 1) or p.is_partial()
+            for p in places):
+        raise ValueError(f"sharded decode takes caches sharded on the batch "
+                         f"and the sequence alone, not {places}")
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in places]
+    names = tuple(mesh.mesh_dim_names)
+    chunks = [i for i, p in enumerate(places) if p.is_shard(1)
+              or (names[i] == seq_axis and mesh.shape[i] == 1)]
+    ql = q.redistribute(mesh, rows).to_local()
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    b_local, s_local = kl.shape[0], kl.shape[1]
+    if is_dtensor(kv_len):
+        kv_len = kv_len.full_tensor()
+    lens = torch.as_tensor(kv_len, device=kl.device).to(torch.int32)
+    lens = lens.reshape(-1).expand(k_cache.shape[0])
+    r0 = shard_index(mesh, places, 0) * b_local
+    s0 = shard_index(mesh, places, 1) * s_local
+    lens = torch.clamp(lens[r0:r0 + b_local] - s0, 0, s_local).contiguous()
+    o, lse = decode_attention(ql.contiguous(), kl, vl, lens, backend=backend,
+                              return_lse=True)
+    if chunks:
+        def reduced(t, op):
+            return DTensor.from_local(
+                t, mesh, [Partial(op) if i in chunks else p
+                          for i, p in enumerate(rows)]).redistribute(
+                mesh, rows).to_local()
+
+        w = torch.exp(lse - reduced(lse, "max"))                 # (b, h)
+        tot = reduced(torch.cat([o[:, 0].float() * w[..., None],
+                                 w[..., None]], dim=-1), "sum")
+        o = (tot[..., :-1] / tot[..., -1:]).to(o.dtype)[:, None]
+    return DTensor.from_local(o, mesh, rows)
 
 
 def paged_decode_attention(q, k_pool, v_pool, bt, kv_len, *,

@@ -64,7 +64,9 @@ from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.attention import (chunked_attention, decode_attention,
                                           paged_decode_attention)
 from repro_torch.models.transformer import (_MASK, ATTN_KINDS, RunCtx,
-                                            _effective, _lm_head, _norm,
+                                            _effective,
+                                            _head_sharded_attention,
+                                            _lm_head, _norm,
                                             check_supported, cross_query,
                                             embed, encode, ffn_fwd,
                                             layer_sigs, proj_cross, rope_for,
@@ -530,11 +532,15 @@ def _block_decode(bp, x, cl, cfg: ModelConfig, ctx: RunCtx, sig, rope,
         _store(cl, **st._asdict())
     else:
         y = _attention_decode(bp["attn"], h, cl, cfg, ctx, rope, index)
-    x = x + y
+    # on a mesh the residual keeps its batch over the data axes, here and
+    # after the block: left to DTensor, the products drift to layouts that
+    # replicate them (qwen2-0.5b decode_32k on 16 x 16: 2.8x the flops)
+    x = ctx.act(x + y)
     if "ck" in cl:
         hc = _norm(bp["norm_cross"], x, cfg)
         o = decode_attention(cross_query(bp["cross"], hc, cfg), cl["ck"],
-                             cl["cv"], cross_len, backend=ctx.decode_backend)
+                             cl["cv"], cross_len, backend=ctx.decode_backend,
+                             seq_axis=ctx.tp_axis)
         x = x + L.out_proj(bp["cross"], o)
     return ffn_fwd(bp, x, cfg, ffn, ctx)[0]
 
@@ -559,24 +565,28 @@ def _write_step(buf, slot, x) -> None:
     if not is_dtensor(buf):
         buf.index_copy_(1, slot.reshape(1), x)
         return
-    from torch.distributed.tensor import Replicate, Shard
-    mesh, places = buf.device_mesh, buf.placements
-    if is_dtensor(x):
-        x = x.redistribute(mesh, [Replicate() if p == Shard(1) else p
-                                  for p in places]).to_local()
+    x = _seq_whole(x, buf)
     if is_dtensor(slot):
         slot = slot.to_local()
     local = buf.to_local()
-    # this rank's first sequence position: its shard's index over the mesh
-    # dims that split the sequence, the earlier mesh dim outermost
-    shard = 0
-    for coord, n, p in zip(mesh.get_coordinate(), mesh.shape, places):
-        if p == Shard(1):
-            shard = shard * n + coord
-    at = slot.reshape(1) - shard * local.shape[1]
+    # this rank's first sequence position
+    at = (slot.reshape(1)
+          - L.shard_index(buf.device_mesh, buf.placements, 1)
+          * local.shape[1])
     held = (at >= 0) & (at < local.shape[1])
     at = at.clamp(0, local.shape[1] - 1)
     local.index_copy_(1, at, torch.where(held, x, local.index_select(1, at)))
+
+
+def _seq_whole(x, buf):
+    """The local rows of ``x`` (b, s, ...) as the ``DTensor`` cache ``buf``
+    places its batch, with the sequence whole on every rank."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(buf.device_mesh, [
+        Replicate() if p.is_shard(1) else p for p in buf.placements
+    ]).to_local()
 
 
 def _attention_decode(p, h, cl, cfg: ModelConfig, ctx: RunCtx, rope, index):
@@ -603,7 +613,7 @@ def _attention_decode(p, h, cl, cfg: ModelConfig, ctx: RunCtx, rope, index):
         _write_step(cl["k"], slot, k.to(cl["k"].dtype))
         _write_step(cl["v"], slot, v.to(cl["v"].dtype))
     o = decode_attention(q, cl["k"], cl["v"], kv_len,
-                         backend=ctx.decode_backend)
+                         backend=ctx.decode_backend, seq_axis=ctx.tp_axis)
     return L.out_proj(p, o)
 
 
@@ -636,26 +646,34 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, ctx: RunCtx,
     ``cache["pos"]`` (b,): per-slot lengths, one step for a mixed-age batch.
     Positions enter as RoPE, or as whisper's sinusoidal embedding (qwen2-vl
     serves on 1-D RoPE, as the reference's decode does).
+
+    On a mesh (params and cache ``DTensor``s placed by ``dist/sharding.py``)
+    attention decodes on each rank's local shards and merges the sequence's
+    chunks by their log-sum-exp (``models/attention.py::decode_attention``).
     """
     pattern = tuple(pattern) if pattern is not None else cfg.pattern
-    pos = cache["pos"]
-    b = tokens.shape[0]
-    at = pos[:, None] if pos.ndim == 1 else pos[None]     # (b, 1) | (1,)
-    x = embed(params, tokens, cfg, ctx, positions=at)
-    rope = rope_for(cfg, at)
-    cross_len = (torch.full((b,), cfg.encoder_seq_len, dtype=torch.int32,
-                            device=pos.device)
-                 if cfg.encoder_layers else None)
-    index = {None: None}
-    for bp, cl, sig, _, _ in _layers(params, cache, cfg, pattern):
-        geom = _layer_len(cl) if sig[0] in ATTN_KINDS else None
-        if geom not in index:
-            index[geom] = _step_index(pos, *geom, b)
-        x = _block_decode(bp, x, cl, cfg, ctx, sig, rope, index[geom],
-                          cross_len)
-    logits = _head(params, x[:, 0], cfg)
-    cache["pos"] = pos + 1
-    return logits, cache
+    # on a mesh the step's host-made tensors join the DTensors replicated
+    with L.on_mesh(params["embed"]):
+        pos = cache["pos"]
+        b = tokens.shape[0]
+        at = pos[:, None] if pos.ndim == 1 else pos[None]     # (b, 1) | (1,)
+        # on a mesh: the batch over the data axes where it divides them, else
+        # replicated (the embedding's vocab-partial sum reduced once, here)
+        x = ctx.act(embed(params, tokens, cfg, ctx, positions=at))
+        rope = rope_for(cfg, at)
+        cross_len = (torch.full((b,), cfg.encoder_seq_len, dtype=torch.int32,
+                                device=pos.device)
+                     if cfg.encoder_layers else None)
+        index = {None: None}
+        for bp, cl, sig, _, _ in _layers(params, cache, cfg, pattern):
+            geom = _layer_len(cl) if sig[0] in ATTN_KINDS else None
+            if geom not in index:
+                index[geom] = _step_index(pos, *geom, b)
+            x = ctx.act(_block_decode(bp, x, cl, cfg, ctx, sig, rope,
+                                      index[geom], cross_len))
+        logits = _head(params, x[:, 0], cfg)
+        cache["pos"] = pos + 1
+        return logits, cache
 
 
 # ---------------------------------------------------------------------------
@@ -740,12 +758,17 @@ class ChunkedPrefill:
         if hi <= lo:
             return 0
         at = torch.arange(lo, hi, device=self.tokens.device)
-        x = embed(self.params, self.tokens[:, lo:hi], cfg, ctx, positions=at)
-        rope = rope_for(cfg, at)
         last = hi == self.total
-        for li, (bp, cl, sig, kind, window) in enumerate(self._layers):
-            x = self._block(bp, x, li, cl, sig, kind, window, rope, lo, last)
-        self._logits = _head(self.params, x[:, -1], cfg)
+        # on a mesh the chunk's host-made tensors join the DTensors
+        # replicated
+        with L.on_mesh(self.params["embed"]):
+            x = ctx.act(embed(self.params, self.tokens[:, lo:hi], cfg, ctx,
+                              positions=at))
+            rope = rope_for(cfg, at)
+            for li, (bp, cl, sig, kind, window) in enumerate(self._layers):
+                x = self._block(bp, x, li, cl, sig, kind, window, rope, lo,
+                                last)
+            self._logits = _head(self.params, x[:, -1], cfg)
         self.done_tokens = hi
         return hi - lo
 
@@ -762,10 +785,15 @@ class ChunkedPrefill:
         if "ck" in cl:
             hc = _norm(bp["norm_cross"], x, cfg)
             q = cross_query(bp["cross"], hc, cfg)
-            o = chunked_attention(q, cl["ck"], cl["cv"], kind="bidir",
-                                  chunk_q=q.shape[1],
-                                  chunk_k=self.ctx.chunk_k,
-                                  backend=self.ctx.prefill_backend)
+            if is_dtensor(q):
+                o = _head_sharded_attention(q, cl["ck"], cl["cv"], self.ctx,
+                                            "bidir", 0, q.shape[1],
+                                            self.ctx.prefill_backend)
+            else:
+                o = chunked_attention(q, cl["ck"], cl["cv"], kind="bidir",
+                                      chunk_q=q.shape[1],
+                                      chunk_k=self.ctx.chunk_k,
+                                      backend=self.ctx.prefill_backend)
             x = x + L.out_proj(bp["cross"], o)
         return ffn_fwd(bp, x, cfg, sig[1])[0]
 
@@ -807,10 +835,16 @@ class ChunkedPrefill:
             _fill(cl, k, v)
         else:
             self._carry[li] = {"k": k, "v": v}
-        o = chunked_attention(q, k, v, kind=_MASK[kind], window=window,
-                              q_offset=lo, chunk_q=self.ctx.chunk_q,
-                              chunk_k=self.ctx.chunk_k,
-                              backend=self.ctx.prefill_backend)
+        if is_dtensor(q):
+            o = _head_sharded_attention(q, k, v, self.ctx, _MASK[kind],
+                                        window, self.ctx.chunk_q,
+                                        self.ctx.prefill_backend,
+                                        q_offset=lo)
+        else:
+            o = chunked_attention(q, k, v, kind=_MASK[kind], window=window,
+                                  q_offset=lo, chunk_q=self.ctx.chunk_q,
+                                  chunk_k=self.ctx.chunk_k,
+                                  backend=self.ctx.prefill_backend)
         return L.out_proj(p, o)
 
     def finish(self):
@@ -827,13 +861,37 @@ def _fill(cl, k, v):
     """Write a whole prompt's K/V (b, s, kv, hd) into a fresh layer cache."""
     s, S = k.shape[1], cl["k"].shape[1]
     for leaf, new in (("k", k), ("v", v)):
-        if s <= S:
+        if is_dtensor(cl[leaf]):
+            _fill_shards(cl[leaf], new)
+        elif s <= S:
             cl[leaf][:, :s] = new
         else:
             # ring smaller than the prompt: the survivor at slot j is the
             # last position = j (mod S)
             idx = torch.arange(s - S, s, device=new.device) % S
             cl[leaf][:, idx] = new[:, s - S:].to(cl[leaf].dtype)
+
+
+def _fill_shards(buf, x) -> None:
+    """:func:`_fill` of one leaf on a ``DTensor`` cache (the sequence over
+    ``tp``, ``dist/sharding.py::cache_specs``), on its local shards: ``x``
+    is brought to the cache's placements with the sequence whole, and each
+    rank writes the slots it holds, as ``_write_step`` writes one."""
+    x = _seq_whole(x, buf)
+    local = buf.to_local()
+    s, S, n = x.shape[1], buf.shape[1], local.shape[1]
+    slots = (L.shard_index(buf.device_mesh, buf.placements, 1) * n
+             + torch.arange(n, device=local.device))
+    if s <= S:
+        held = slots < s
+        src = torch.clamp(slots, max=s - 1)
+    else:
+        # a ring smaller than the prompt: slot j keeps the last position
+        # = j (mod S)
+        held = torch.ones_like(slots, dtype=torch.bool)
+        src = s - S + torch.remainder(slots - (s - S), S)
+    local.copy_(torch.where(held[None, :, None, None],
+                            x[:, src].to(local.dtype), local))
 
 
 def prefill_cache(params, tokens, cache, cfg: ModelConfig, ctx: RunCtx,

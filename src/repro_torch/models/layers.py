@@ -9,6 +9,7 @@ functions take an explicit :class:`torch.Generator`; the big projections stay
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
@@ -48,6 +49,28 @@ def beside(x, *ts):
     return tuple(t if t is None or is_dtensor(t) else
                  DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim)
                  for t in ts)
+
+
+def on_mesh(x):
+    """Where ``x`` is a ``DTensor``, a context in which plain tensors meet
+    DTensors as replicated on its mesh (DTensor's ``implicit_replication``:
+    the serving path's host-made positions, frequencies and indices, the
+    same on every rank); otherwise a context that does nothing."""
+    if not is_dtensor(x):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def shard_index(mesh, placements, dim: int) -> int:
+    """This rank's index among the shards of tensor dim ``dim`` over the
+    mesh dims that split it (``placements``, one a mesh dim), the earlier
+    mesh dim outermost, as DTensor orders them; 0 where none does."""
+    idx = 0
+    for coord, n, p in zip(mesh.get_coordinate(), mesh.shape, placements):
+        if p.is_shard(dim):
+            idx = idx * n + coord
+    return idx
 
 
 def from_shards(local, mesh, placements, grad_placements):
@@ -137,9 +160,11 @@ def mrope_angles(positions_3d, head_dim: int, sections, theta: float):
     freq = float(theta) ** (-torch.arange(0, half, dtype=torch.float32,
                                           device=positions_3d.device) / half)
     ang = positions_3d[..., None].float() * freq          # (3, b, s, half)
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=ang.device),
-        torch.tensor(list(sections), device=ang.device))  # (half,)
+    # built from Python ints: its length is static, as the reference's
+    # ``total_repeat_length=half`` makes it (a fake tensor cannot size a
+    # data-dependent repeat)
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=ang.device)  # (half,)
     one_hot = F.one_hot(sec_id, 3).float()                # (half, 3)
     ang = torch.einsum("pbsh,hp->bsh", ang, one_hot)
     return torch.cos(ang), torch.sin(ang)

@@ -185,6 +185,11 @@ def moe_ffn(params, x, cfg: ModelConfig,
         y = _experts_sharded(xg, dispatch, combine, params, ctx,
                              E % tp_size == 0)
     y = y.reshape(b, s, d)
+    if is_dtensor(y):
+        # pin the merged groups' gradient to their own layout: the backward
+        # of the merge cannot split a sequence sharded over more ranks than
+        # there are groups
+        y = y.redistribute(y.device_mesh, y.placements)
 
     if "shared" in params:
         y = y + L.mlp(params["shared"], x)

@@ -25,7 +25,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch import resolve_device
+from repro_torch import is_dtensor, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense, dense_init
 
@@ -59,11 +59,27 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig, dtype,
     }
 
 
+def _biased(y, b):
+    """``y + b`` for a projection y (..., r) and its bias b (r,).  A
+    ``DTensor`` y that is a partial sum on a mesh dim where b is sharded is
+    reduce-scattered onto b's shards first: torch 2.11's DTensor cannot make
+    a sharded bias partial."""
+    if is_dtensor(y) and any(p.is_partial() for p in y.placements):
+        from torch.distributed.tensor import Replicate, Shard
+        y = y.redistribute(y.device_mesh, [
+            (Shard(y.ndim - 1) if pb.is_shard(0) else Replicate())
+            if p.is_partial() else p
+            for p, pb in zip(y.placements, b.placements)])
+    return y + b
+
+
 def _gates(params, u):
     """u (..., r) -> log_a (f32), gated input (f32)."""
-    ra = torch.sigmoid(dense(u, params["w_a"]).float() + params["b_a"])
+    ra = torch.sigmoid(_biased(dense(u, params["w_a"]).float(),
+                               params["b_a"]))
     log_a = -_C * F.softplus(params["lam"]) * ra
-    gi = torch.sigmoid(dense(u, params["w_i"]).float() + params["b_i"])
+    gi = torch.sigmoid(_biased(dense(u, params["w_i"]).float(),
+                               params["b_i"]))
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     return log_a, beta * gi * u.float()
 

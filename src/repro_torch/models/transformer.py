@@ -247,7 +247,16 @@ def embed(params, tokens, cfg: ModelConfig, ctx: "RunCtx", positions=None):
     # the embedding op, not an index: DTensor (torch 2.11) has no working
     # strategy for the index's backward
     x = F.embedding(ctx.constrain(tokens, (ctx.dp_axes, None)),
-                    params["embed"]).to(ctx.compute_dtype)
+                    params["embed"])
+    if is_dtensor(x) and any(p.is_partial() for p in x.placements):
+        # replicated tokens (a batch the data axes do not divide) looked up
+        # in the vocab-sharded table leave a masked partial sum: reduced
+        # here, once, since DTensor can reduce it neither twice nor after
+        # resharding another of its dims
+        from torch.distributed.tensor import Replicate
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if p.is_partial() else p for p in x.placements])
+    x = x.to(ctx.compute_dtype)
     if cfg.family == "hybrid":
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     if cfg.family == "audio":
@@ -406,12 +415,13 @@ def _partial_grads(x, used_by):
 
 
 def _head_sharded_attention(q, k, v, ctx: RunCtx, kind: str, window: int,
-                            chunk_q: int, backend: str):
+                            chunk_q: int, backend: str, q_offset: int = 0):
     """Megatron attention on the mesh: queries sharded on heads over
     ``tp_axis`` (the sequence gathered), K/V replicated over it; each rank
-    runs the chunked flash, an autograd Function DTensor cannot shard, on
-    its local heads and the KV heads they read.  -> o (b, s, h, hd) with
-    q's placements."""
+    runs the chunked flash, an autograd Function DTensor cannot shard (or,
+    serving, the kernel on ``backend``), on its local heads and the KV heads
+    they read, the queries at ``q_offset``.  -> o (b, s, h, hd) with q's
+    placements."""
     from torch.distributed.tensor import DTensor
     dp, tp = ctx.dp_axes, ctx.tp_axis
     q = ctx.constrain(q, (dp, None, tp, None))
@@ -433,8 +443,8 @@ def _head_sharded_attention(q, k, v, ctx: RunCtx, kind: str, window: int,
                         rounding_mode="floor")
         kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
     o = chunked_attention(ql, kl, vl, kind=kind, window=window,
-                          chunk_q=chunk_q, chunk_k=ctx.chunk_k,
-                          backend=backend)
+                          q_offset=q_offset, chunk_q=chunk_q,
+                          chunk_k=ctx.chunk_k, backend=backend)
     return DTensor.from_local(o, q.device_mesh, q.placements)
 
 

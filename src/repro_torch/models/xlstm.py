@@ -138,22 +138,33 @@ def _on_local_heads(x, nh: int, fn, inputs, out_head_dims):
     independent per (row, head).  Each (tensor, head dim) of ``inputs`` is
     placed with its rows (dim 0) as ``x``'s and its heads over the last
     mesh dim that neither shards x's rows nor fails to divide ``nh``; fn's
-    outputs come back with the placements of ``out_head_dims``.  DTensor
-    (torch 2.11) cannot fold a sharded head dim into the rows of the
-    scan's products."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    outputs come back with the placements of ``out_head_dims``.  An input
+    given as (tensor, head dim, False) has no rows (a weight every row
+    reads): it is whole over the rows' mesh dims, and its local gradient
+    is partial there.  DTensor (torch 2.11) cannot fold a sharded head dim
+    into the rows of the scan's products, and a scan's every step would
+    dispatch through DTensor: on local shards it runs as plain ops, with
+    no collective inside."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = x.device_mesh
     heads = next((i for i in reversed(range(mesh.ndim))
                   if not x.placements[i].is_shard() and mesh.shape[i] > 1
                   and nh % mesh.shape[i] == 0), None)
 
-    def placed(hd):
-        return [Shard(0) if p.is_shard(0) else
+    def placed(hd, rows=True):
+        return [Shard(0) if rows and p.is_shard(0) else
                 Shard(hd) if i == heads else Replicate()
                 for i, p in enumerate(x.placements)]
 
-    outs = fn(*(t.redistribute(mesh, placed(hd)).to_local()
-                for t, hd in inputs))
+    def local(t, hd, rows=True):
+        t = t.redistribute(mesh, placed(hd, rows))
+        if rows:
+            return t.to_local()
+        return t.to_local(grad_placements=[
+            Partial() if p.is_shard(0) else q
+            for p, q in zip(x.placements, t.placements)])
+
+    outs = fn(*(local(*spec) for spec in inputs))
     return tuple(DTensor.from_local(o, mesh, placed(hd))
                  for o, hd in zip(outs, out_head_dims))
 
@@ -203,8 +214,8 @@ def mlstm_decode_step(params, x, cfg: ModelConfig, state: MLSTMState):
     num = torch.einsum("bhd,bhde->bhe", q, C)
     den = torch.einsum("bhd,bhd->bh", q, N)
     h = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
-    og = torch.sigmoid(dense(x[:, 0], params["w_ogate"])).reshape(
-        b, nh, hd)
+    og = split_heads(torch.sigmoid(dense(x[:, 0], params["w_ogate"])), nh,
+                     hd)
     y = dense((h.to(x.dtype) * og).reshape(b, nh * hd),
                      params["w_out"])
     return y[:, None], MLSTMState(C, N, m_new)
@@ -263,13 +274,15 @@ def slstm_init_state(cfg: ModelConfig, batch: int, device) -> SLSTMState:
     return SLSTMState(z, z, z, torch.full(sh, _M0, **f32))
 
 
-def _slstm_cell(params, u_t, state: SLSTMState, nh: int, hd: int):
-    """u_t (b, 4 * nh * hd), the input's pre-activation -> (h (b, nh, hd),
-    new state)."""
+def _slstm_cell(r, u_t, b_in, state: SLSTMState, hd: int):
+    """u_t (b, nh, 4 * hd), the input's pre-activation by head, b_in
+    (nh, 4 * hd) and the recurrence r (nh, hd, 4 * hd) -> (h (b, nh, hd),
+    new state).  Inputs come split into heads from outside the sequence
+    loop, so a mesh gathers any heads it must gather once, not once a
+    token."""
     c, n, h, m = state
-    rec = torch.einsum("bhd,hde->bhe", h.to(params["r"].dtype), params["r"])
-    pre = (split_heads(u_t, nh, 4 * hd).float() + rec.float()
-           + params["b_in"].reshape(nh, 4 * hd))
+    rec = torch.einsum("bhd,hde->bhe", h.to(r.dtype), r)
+    pre = u_t.float() + rec.float() + b_in
     z, i, f, o = torch.split(pre, hd, dim=-1)           # (b, nh, hd) each
     z = torch.tanh(z)
     o = torch.sigmoid(o)
@@ -289,24 +302,44 @@ def slstm_block(params, x, cfg: ModelConfig,
     """x (b, s, d) -> (b, s, d): a loop over the sequence."""
     b, s, d = x.shape
     nh, hd = cfg.num_heads, cfg.resolved_head_dim
-    u = dense(x, params["w_in"])                 # (b, s, 4 * nh * hd)
+    u = split_heads(dense(x, params["w_in"]), nh, 4 * hd)  # (b, s, nh, 4hd)
+    b_in = split_heads(params["b_in"], nh, 4 * hd)
     if state is None:
         state = SLSTMState(*beside(x, *slstm_init_state(cfg, b, x.device)))
-    hs = []
-    for t in range(s):
-        h, state = _slstm_cell(params, u[:, t], state, nh, hd)
-        hs.append(h)
-    hs = torch.stack(hs, dim=1).reshape(b, s, nh * hd).to(x.dtype)
+    if is_dtensor(x):
+        # per (row, head) throughout: each rank scans its own
+        hs, *st = _on_local_heads(
+            x, nh, lambda u, b_in, r, *st: _slstm_scan(
+                u, b_in, r, SLSTMState(*st), hd),
+            [(u, 2), (b_in, 0, False), (params["r"], 0, False)]
+            + [(t, 1) for t in state], (2, 1, 1, 1, 1))
+        state = SLSTMState(*st)
+    else:
+        hs, *st = _slstm_scan(u, b_in, params["r"], state, hd)
+        state = SLSTMState(*st)
+    hs = hs.reshape(b, s, nh * hd).to(x.dtype)
     out = dense(hs, params["w_out"])
     if return_state:
         return out, state
     return out
 
 
+def _slstm_scan(u, b_in, r, state: SLSTMState, hd: int):
+    """The sequence of u (b, s, nh, 4 * hd) in order from ``state`` -> (h
+    (b, s, nh, hd), the final c, n, h, m)."""
+    hs = []
+    for t in range(u.shape[1]):
+        h, state = _slstm_cell(r, u[:, t], b_in, state, hd)
+        hs.append(h)
+    return (torch.stack(hs, dim=1), *state)
+
+
 def slstm_decode_step(params, x, cfg: ModelConfig, state: SLSTMState):
     b = x.shape[0]
     nh, hd = cfg.num_heads, cfg.resolved_head_dim
-    u = dense(x[:, 0], params["w_in"])
-    h, state = _slstm_cell(params, u, state, nh, hd)
+    u = split_heads(dense(x[:, 0], params["w_in"]), nh, 4 * hd)
+    h, state = _slstm_cell(params["r"], u,
+                           split_heads(params["b_in"], nh, 4 * hd), state,
+                           hd)
     out = dense(h.reshape(b, nh * hd).to(x.dtype), params["w_out"])
     return out[:, None], state

@@ -124,11 +124,43 @@ def split_microbatches(x: torch.Tensor, n_micro: int) -> torch.Tensor:
     positions (3, b, s) and split on axis 1.  Kept as the reference has it:
     a global batch of exactly 3 rows is therefore split along the sequence
     (tokens (3, s) -> (n_micro, 3, s / n_micro)), while the (3,) weights
-    split by row."""
+    split by row.
+
+    A ``DTensor`` whose batch dim (0, or 1 for (3, b, s) positions) is
+    sharded splits each rank's local rows, (b_local) -> (n_micro, b_local /
+    n_micro) with the shard on the second dim, so microbatch i takes rows
+    from every rank.  That is a different partition of the same rows from the
+    reference's (where XLA reshards whatever ``n_micro`` is), with the same
+    accumulated sum-form gradient; a global split would need ``n_micro`` to
+    be a multiple of the data ranks.  ``b_local % n_micro`` raises
+    ``ValueError``."""
+    if is_dtensor(x):
+        batch_dim = 1 if x.ndim >= 3 and x.shape[0] == 3 else 0
+        if any(p.is_shard(batch_dim) for p in x.placements):
+            return _split_local_rows(x, n_micro, batch_dim)
     if x.ndim >= 2 and x.shape[0] == 3:
         return x.reshape(3, n_micro, x.shape[1] // n_micro,
                          *x.shape[2:]).transpose(0, 1)
     return x.reshape(n_micro, x.shape[0] // n_micro, *x.shape[1:])
+
+
+def _split_local_rows(x, n_micro: int, batch_dim: int):
+    """:func:`split_microbatches` of a ``DTensor`` sharded on ``batch_dim``
+    (0, or 1 under the 3-row rule), on each rank's local rows: every dim
+    moves one place right, the batch's shard onto its local part."""
+    from torch.distributed.tensor import DTensor, Shard
+    local = x.to_local()
+    b_local = local.shape[batch_dim]
+    if b_local % n_micro:
+        raise ValueError(f"each rank holds {b_local} rows of the batch, "
+                         f"which n_micro {n_micro} does not divide")
+    shape = local.shape
+    local = local.reshape(*shape[:batch_dim], n_micro, b_local // n_micro,
+                          *shape[batch_dim + 1:])
+    if batch_dim:
+        local = local.transpose(0, 1)
+    places = [Shard(p.dim + 1) if p.is_shard() else p for p in x.placements]
+    return DTensor.from_local(local, x.device_mesh, places, run_check=False)
 
 
 def make_train_step(cfg: ModelConfig, ctx: RunCtx, opt_update: Callable,

@@ -184,3 +184,69 @@ def test_sharded_cache_write_lands_on_the_owning_rank(slot):
             _write_step(buf, torch.tensor(slot), xd)
             assert torch.equal(buf.to_local(),
                                want[:, 4 * rank:4 * (rank + 1)])
+
+
+# one reduced combination of each class of geometry that DTensor's rules
+# refused before the port ran those programs on local shards (ROADMAP.md
+# §3), on a (4, 4) mesh of 16 fake ranks: (arch, config fields replaced,
+# shape, long-context pattern, n_micro)
+CLASSES = {
+    "A_microbatch_split": ("qwen1.5-0.5b", {}, (16, 8, "train"), False, 2),
+    "B_gqa_decode": ("internlm2-20b", {"num_heads": 12, "num_kv_heads": 2},
+                     (64, 8, "decode"), False, 0),
+    "C_batch1_decode": ("qwen2-0.5b", {"num_kv_heads": 4},
+                        (128, 1, "decode"), True, 0),
+    "D_mrope_prefill": ("qwen2-vl-2b", {}, (16, 4, "prefill"), False, 0),
+    "E_xlstm_heads": ("xlstm-125m", {"num_heads": 2, "head_dim": 128},
+                      (64, 4, "decode"), False, 0),
+}
+
+_CLASS_SCRIPT = r"""
+import dataclasses, json, sys, time
+from repro_torch.configs import get_config
+from repro_torch.configs.base import InputShape
+from repro_torch.dist import hlo_cost
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_test_mesh
+
+hlo_cost.init_fake_world(16)
+mesh = make_test_mesh((4, 4), device="cpu")
+recs = {}
+for name, (arch, repl, (s, b, kind), long_ctx, n_micro) in json.loads(
+        sys.argv[2]).items():
+    t0 = time.time()
+    cfg = dataclasses.replace(get_config(arch).reduced(), **repl)
+    shape = InputShape(name, s, b, kind)
+    program = dryrun.record_step(cfg, shape, mesh, long_ctx, n_micro)
+    recs[name] = dryrun.write_artifact(cfg, shape, mesh, program, arch, name,
+                                       sys.argv[1], t0,
+                                       n_micro_override=n_micro)
+print(json.dumps(recs))
+"""
+
+
+@pytest.fixture(scope="module")
+def class_records(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("dryrun_classes")
+    r = subprocess.run([sys.executable, "-c", _CLASS_SCRIPT, str(tmp),
+                        json.dumps(CLASSES)], capture_output=True, text=True,
+                       timeout=300, cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert r.returncode == 0, r.stderr[-3000:]
+    return tmp, json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", list(CLASSES))
+def test_repaired_geometry_records(class_records, name):
+    """Each class's reduced geometry records on 16 fake ranks: a complete
+    artifact with the reference's keys, every op counted, flops above 0,
+    and the train step at its ``n_micro``."""
+    tmp, recs = class_records
+    rec = recs[name]
+    arch = CLASSES[name][0]
+    assert REFERENCE_KEYS | {"flop_counter_raw"} <= set(rec)
+    assert rec["mesh"] == "4x4" and rec["chips"] == 16
+    assert rec["unknown_ops"] == []
+    assert rec["flops_per_chip"] > 0 and rec["bytes_per_chip"] > 0
+    assert rec["n_micro"] == (CLASSES[name][4] or 1)
+    assert json.loads((tmp / f"{arch}__{name}__4x4.json").read_text()) == rec

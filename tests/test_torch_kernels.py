@@ -156,6 +156,52 @@ def test_flash_decode_group_16(hd):
     _close(out, ref, 2e-6)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_lse_leaves_o_and_matches_float64(dtype):
+    """``return_lse`` leaves o's bits as they are without it, and the lse is
+    the float64 log-sum-exp of the masked scaled scores within 1e-6: kv_len
+    0 (every key at NEG_INF: lse NEG_INF), 1, mid, and past S."""
+    b, S, h, kvh, hd = 4, 40, 6, 2, 32
+    _, qt = _both((b, 1, h, hd), 60, dtype)
+    _, kt = _both((b, S, kvh, hd), 61, dtype)
+    _, vt = _both((b, S, kvh, hd), 62, dtype)
+    lens = torch.tensor([0, 1, 23, S + 6], dtype=torch.int32)
+    o, lse = fd.flash_decode(qt, kt, vt, lens, return_lse=True)
+    assert torch.equal(o, fd.flash_decode(qt, kt, vt, lens))
+    assert lse.dtype == torch.float32 and lse.shape == (b, h)
+    q64 = qt.double().reshape(b, kvh, h // kvh, hd)
+    sc = torch.einsum("bkgd,bskd->bkgs", q64, kt.double()) * hd ** -0.5
+    valid = torch.arange(S)[None, :] < lens[:, None]
+    sc = torch.where(valid[:, None, None, :], sc, -1e30)
+    want = torch.logsumexp(sc, dim=-1).reshape(b, h)
+    np.testing.assert_allclose(lse.double().numpy(), want.numpy(),
+                               rtol=1e-6, atol=1e-6)
+    assert torch.all(lse[0] == torch.tensor(-1e30, dtype=torch.float32))
+
+
+def test_decode_wrappers_refuse_dtensors():
+    """A DTensor has no storage of its own to launch on: both decode
+    wrappers raise ``TypeError`` naming the local-shard route, on the CPU
+    too, rather than run the plain version on it."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.dist import hlo_cost
+    from repro_torch.launch.mesh import make_test_mesh
+    q = torch.zeros((2, 1, 4, 8))
+    k = torch.zeros((2, 16, 2, 8))
+    bt = torch.zeros((2, 2), dtype=torch.int32)
+    with hlo_cost.fake_world(1):
+        mesh = make_test_mesh((1, 1), device="cpu")
+        qd, kd = (distribute_tensor(t, mesh, [Replicate(), Replicate()],
+                                    src_data_rank=None) for t in (q, k))
+        with pytest.raises(TypeError, match="local shards"):
+            fd.flash_decode(qd, kd, kd, 16)
+        with pytest.raises(TypeError, match="local shards"):
+            fd.flash_decode(q, kd, kd, 16, return_lse=True)
+        with pytest.raises(TypeError, match="local shards"):
+            fd.flash_decode_paged(qd, kd, kd, bt, 16)
+
+
 def test_check_aligned_refuses_a_view_off_by_one_element():
     """The kernel copies K/V rows in 16-byte pieces: the wrapper's check
     raises on a contiguous view that starts one element into its buffer,
