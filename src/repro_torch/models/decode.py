@@ -71,6 +71,7 @@ from repro_torch.models.transformer import (_MASK, ATTN_KINDS, RunCtx,
                                             embed, encode, ffn_fwd,
                                             layer_sigs, proj_cross, rope_for,
                                             rotate, stack_plan, take)
+from repro_torch.obs import spans
 
 # the fused prefill's mLSTM chunk (the reference's prefill_cache)
 FUSED_MLSTM_CHUNK = 256
@@ -751,7 +752,12 @@ class ChunkedPrefill:
         return self.total - self.done_tokens
 
     def step(self, n_tokens: int) -> int:
-        """Advance prefill by up to ``n_tokens``; returns tokens processed."""
+        """Advance prefill by up to ``n_tokens``; returns tokens processed
+        (a chunk run is the span ``repro.serve.prefill_chunk``)."""
+        with spans.span("repro.serve.prefill_chunk"):
+            return self._run_chunk(n_tokens)
+
+    def _run_chunk(self, n_tokens: int) -> int:
         cfg, ctx = self.cfg, self.ctx
         lo = self.done_tokens
         hi = min(lo + int(n_tokens), self.total)

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from repro_torch import is_dtensor
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models import layers as L
+from repro_torch.obs import spans
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype,
@@ -155,7 +156,27 @@ def moe_ffn(params, x, cfg: ModelConfig,
     the expert tensors: expert-parallel (the expert dim over ``tp_axis``)
     when it divides E, tensor-parallel experts (d_ff over ``tp_axis``)
     otherwise, as ``dist/sharding.py`` places their weights.
+
+    The call is the span ``repro.model.moe_ffn``; while spans are on it
+    counts ``moe.assigned_rows``, ``moe.capacity_rows`` and
+    ``moe.routed_rows`` over its rows (a rank's own on a mesh).
     """
+    with spans.span("repro.model.moe_ffn"):
+        return _moe_ffn(params, x, cfg, ctx)
+
+
+def _count_rows(dispatch, top_k: int) -> None:
+    """The spans' MoE counters of one call's (b, G, S, E, C) dispatch: the
+    rows its tokens ask for, the capacity rows the experts run over, and
+    the rows routed (the rest were dropped)."""
+    local = dispatch.to_local() if is_dtensor(dispatch) else dispatch
+    b, G, S, E, C = local.shape
+    spans.count("moe.assigned_rows", b * G * S * top_k)
+    spans.count("moe.capacity_rows", b * E * G * C)
+    spans.count_on_device("moe.routed_rows", torch.count_nonzero(local))
+
+
+def _moe_ffn(params, x, cfg: ModelConfig, ctx):
     moe = cfg.moe
     b, s, d = x.shape
     E = moe.num_experts
@@ -184,6 +205,8 @@ def moe_ffn(params, x, cfg: ModelConfig,
         dispatch = (combine > 0).to(x.dtype)
         y = _experts_sharded(xg, dispatch, combine, params, ctx,
                              E % tp_size == 0)
+    if spans.enabled():
+        _count_rows(dispatch, moe.top_k)
     y = y.reshape(b, s, d)
     if is_dtensor(y):
         # pin the merged groups' gradient to their own layout: the backward

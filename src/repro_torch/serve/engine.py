@@ -43,6 +43,7 @@ from repro_torch.models.decode import (ChunkedPrefill, decode_step,
                                        prefill_cache, prefix_sharing_supported,
                                        slot_insert)
 from repro_torch.models.paging import PagePool, PrefixIndex
+from repro_torch.obs import spans
 from repro_torch.obs.callbacks import SERVE_SUMMARY, serve_event
 from repro_torch.obs.tracker import NOOP
 from repro_torch.serve.metrics import RequestRecord, summarize
@@ -381,11 +382,13 @@ class SlotRunner:
     def step(self, active_slots: List[int]) -> None:
         """One decode step over the whole slot batch; records new tokens for
         the active slots only (free slots ride along, output ignored)."""
-        logits, self.cache = decode_step(self.params, self.cache,
-                                         self.next_tok[:, None], self.cfg,
-                                         self.ctx, pattern=self._pattern)
-        self.next_tok = self._sample(logits)
-        nxt = self.next_tok.tolist()
+        with spans.span("repro.serve.decode"):
+            logits, self.cache = decode_step(self.params, self.cache,
+                                             self.next_tok[:, None], self.cfg,
+                                             self.ctx, pattern=self._pattern)
+        with spans.span("repro.serve.sample"):
+            self.next_tok = self._sample(logits)
+            nxt = self.next_tok.tolist()
         for s in active_slots:
             rid = self._slot_rid[s]
             if rid is not None:

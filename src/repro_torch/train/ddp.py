@@ -28,6 +28,7 @@ from repro_torch.core import compression as comp_lib
 from repro_torch.kernels.scatter_agg import (scatter_aggregate,
                                              scatter_aggregate_ref)
 from repro_torch.models.transformer import RunCtx
+from repro_torch.obs import spans
 from repro_torch.train.step import make_loss_fn, value_and_grad
 from repro_torch.tree import leaves, unflatten
 
@@ -89,7 +90,10 @@ def make_ddp_steps(cfg: ModelConfig, ctx: RunCtx, opt_update: Callable,
 
     ``on_phase(name)``, if given, is called as each phase of a step ends:
     ``"fwd_bwd"``, ``"topk"`` (compressed step only), ``"aggregate"``,
-    ``"update"``; a caller may record a CUDA event there.
+    ``"update"``; a caller may record a CUDA event there.  The regions
+    these marks close are also the spans ``repro.train.topk``,
+    ``repro.train.aggregate`` and ``repro.train.update`` inside
+    ``repro.train.step`` (``obs/spans.py``; recorded only while on).
     """
     loss_fn = make_loss_fn(cfg, ctx)
     n_floats = sum(p.numel() for p in leaves(param_template))
@@ -111,35 +115,42 @@ def make_ddp_steps(cfg: ModelConfig, ctx: RunCtx, opt_update: Callable,
         return size, flat, unflatten_fn, w, loss
 
     def finish(params, opt_state, g_flat, unflatten_fn, step, metrics):
-        lr = lr_schedule(step)
-        params, opt_state = opt_update(unflatten_fn(g_flat), opt_state,
-                                       params, lr)
+        with spans.span("repro.train.update"):
+            lr = lr_schedule(step)
+            params, opt_state = opt_update(unflatten_fn(g_flat), opt_state,
+                                           params, lr)
         phase("update")
         return params, opt_state, metrics
 
     def dense_step(params, opt_state, batch, rates, step):
-        size, flat, unflatten_fn, w, loss = begin(params, batch, rates)
-        g = _all_reduce(flat.mul_(w), size)
-        phase("aggregate")
-        return finish(params, opt_state, g, unflatten_fn, step,
-                      {"loss": loss, "gap": torch.zeros_like(loss)})
+        with spans.span("repro.train.step"):
+            size, flat, unflatten_fn, w, loss = begin(params, batch, rates)
+            with spans.span("repro.train.aggregate"):
+                g = _all_reduce(flat.mul_(w), size)
+            phase("aggregate")
+            return finish(params, opt_state, g, unflatten_fn, step,
+                          {"loss": loss, "gap": torch.zeros_like(loss)})
 
     def compressed_step(params, opt_state, batch, rates, step):
-        size, flat, unflatten_fn, w, loss = begin(params, batch, rates)
-        vals, idx = comp_lib.global_topk(flat, k)
-        gap = comp_lib.energy_gap(flat, comp_lib.densify(vals, idx, n_floats))
-        del flat
-        phase("topk")
-        # pack (r_i * values, indices) and gather them in rank order
-        vals_all = _all_gather(vals * w, size)
-        idx_all = _all_gather(idx, size)
-        fused = (vals.device.type == "cuda" if use_scatter_agg is None
-                 else use_scatter_agg)
-        agg = scatter_aggregate if fused else scatter_aggregate_ref
-        g = agg(vals_all, idx_all, n_floats)
-        gap = _all_reduce(gap, size) / size
-        phase("aggregate")
-        return finish(params, opt_state, g, unflatten_fn, step,
-                      {"loss": loss, "gap": gap})
+        with spans.span("repro.train.step"):
+            size, flat, unflatten_fn, w, loss = begin(params, batch, rates)
+            with spans.span("repro.train.topk"):
+                vals, idx = comp_lib.global_topk(flat, k)
+                gap = comp_lib.energy_gap(
+                    flat, comp_lib.densify(vals, idx, n_floats))
+                del flat
+            phase("topk")
+            with spans.span("repro.train.aggregate"):
+                # pack (r_i * values, indices) and gather them in rank order
+                vals_all = _all_gather(vals * w, size)
+                idx_all = _all_gather(idx, size)
+                fused = (vals.device.type == "cuda" if use_scatter_agg is None
+                         else use_scatter_agg)
+                agg = scatter_aggregate if fused else scatter_aggregate_ref
+                g = agg(vals_all, idx_all, n_floats)
+                gap = _all_reduce(gap, size) / size
+            phase("aggregate")
+            return finish(params, opt_state, g, unflatten_fn, step,
+                          {"loss": loss, "gap": gap})
 
     return dense_step, compressed_step, k, n_floats

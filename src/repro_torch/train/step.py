@@ -18,6 +18,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch import is_dtensor
 from repro_torch.models.transformer import RunCtx, forward_hidden, lm_loss
+from repro_torch.obs import spans
 from repro_torch.tree import leaves, tree_map, unflatten
 
 MOE_AUX_WEIGHT = 0.01
@@ -71,18 +72,22 @@ def value_and_grad(loss_fn, params, batch
                    ) -> Tuple[torch.Tensor, Dict[str, Any], List[torch.Tensor]]:
     """``loss_fn(params, batch)`` -> (total, metrics, gradients), the
     gradients in :func:`repro_torch.tree.leaves` order (zeros for a leaf the
-    loss does not reach), everything detached: no graph outlives the call."""
+    loss does not reach), everything detached: no graph outlives the call.
+    The loss is the span ``repro.train.forward``, the gradient and its
+    zero fill ``repro.train.backward`` (with remat's recomputed forward)."""
     flat_p = leaves(params)
     live = [p.detach().requires_grad_() for p in flat_p]
-    total, metrics = loss_fn(unflatten(params, live), batch)
+    with spans.span("repro.train.forward"):
+        total, metrics = loss_fn(unflatten(params, live), batch)
     if is_dtensor(total):
         # the backward seeds a replicated 1, never a partial one
         metrics = {k: _replicated(v) if is_dtensor(v) else v
                    for k, v in metrics.items()}
         total = _replicated(total)
-    grads = torch.autograd.grad(total, live, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for g, p in zip(grads, flat_p)]
+    with spans.span("repro.train.backward"):
+        grads = torch.autograd.grad(total, live, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, flat_p)]
     return (total.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)
 
