@@ -3983,7 +3983,8 @@ def time_zoo_serving(torch, serve, dec, get_config, card, archs=tuple(ZOO)):
             bp = {k: v[0] for k, v in params["unit"]["p0"]["moe"].items()}
             x = torch.randn((args.batch, 1, cfg.d_model), device=DEVICE)
             ms = device_ms(torch, lambda: moe.moe_ffn(bp, x, cfg), iters=3)
-            E, C = cfg.moe.num_experts, moe.capacity(cfg.moe)
+            # a decode call's group is its one token: one row an expert
+            E, C = cfg.moe.num_experts, min(moe.capacity(cfg.moe), 1)
             flops = 3 * 2 * args.batch * E * C * cfg.d_model * cfg.d_ff
             log(f"  one MoE FFN at the decode shape (b {args.batch}, s 1; E "
                 f"{E}, C {C}): {ms:.3f} ms device, {flops:.3e} expert "

@@ -4,10 +4,14 @@ Counterpart of ``repro/models/moe.py``.  Tokens are reshaped into groups of
 ``group_size``; a one-hot dispatch tensor (b, groups, S, E, C) routes each
 token to its top-k experts subject to a per-group, per-expert capacity
 ``C = group_size * top_k * capacity_factor / E`` (at least 4).  Tokens past
-an expert's capacity are dropped for that expert (GShard semantics).  The
-capacity is taken from ``group_size`` even when a call's group is shorter
-(a decode step's group is one token), as the reference takes it: the
-expert products then run over E x C rows whatever the call's length.
+an expert's capacity are dropped for that expert (GShard semantics).  A
+call whose group is shorter than ``group_size`` (a decode step's group is
+one token, a prompt's last chunk may be shorter) runs over
+``min(C, S)`` capacity rows per group of S tokens: top-k picks distinct
+experts, so an expert takes at most one row a token and no row at or past
+S can be filled whatever the capacity factor.  The clamp changes no
+routing, drop, gate or output of the reference's E x C layout; it only
+leaves out rows that are always zero.
 
 On a mesh (``DTensor`` activations) the expert tensors are pinned as the
 reference pins them, and the routing runs on each rank's rows.  The router runs in
@@ -185,7 +189,8 @@ def _moe_ffn(params, x, cfg: ModelConfig, ctx):
         raise ValueError(f"sequence {s} is not a multiple of the MoE group "
                          f"{S}")
     G = s // S
-    C = capacity(moe)
+    # an expert takes at most one row a token: rows past S stay empty
+    C = min(capacity(moe), S)
     if ctx is not None:
         # the groups split the sequence: rows whole on each rank
         x = ctx.constrain(x, (ctx.dp_axes, None, None))

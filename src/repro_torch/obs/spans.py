@@ -35,7 +35,7 @@ Sites (the span's name, then the counters):
   recomputed forward), ``repro.train.topk``, ``repro.train.aggregate``,
   ``repro.train.update`` (the regions ``on_phase``'s marks close);
 * ``repro.model.moe_ffn`` (``models/moe.py::moe_ffn``): ``moe.assigned_rows``
-  (b·G·S·top_k, host), ``moe.capacity_rows`` (b·E·G·C, host),
+  (b·G·S·top_k, host), ``moe.capacity_rows`` (b·E·G·min(C, S), host),
   ``moe.routed_rows`` (the dispatch tensor's nonzeros, device; a rank's
   own rows on a mesh): rows dropped = assigned - routed;
 * ``repro.serve.decode`` and ``repro.serve.sample``

@@ -7,8 +7,14 @@ leaf by leaf; activations come from numpy at a seed.  Reduced mixtral
 top-1, one shared expert, capacity 20), each at a length of two groups:
 mixtral's routing stays within capacity there, llama4's overflows it; one
 case whose small group and capacity factor drop many; a decode-shaped call
-(one token, capacity still from the group size).  Each case holds the expert choices equal, ``y`` within 1e-5 and the
-aux loss within 1e-6 relative.
+(one token; the reference keeps the group size's capacity, the port clamps
+it to the call's group).  Each case holds the expert choices equal, ``y``
+within 1e-5 and the aux loss within 1e-6 relative.
+
+Then the port against itself: ``moe_ffn`` clamps a call's capacity to
+``min(C, S)`` for a group of S tokens, and must match the layout with the
+configured C built from ``_route`` and ``_experts``: the same routed
+(token, expert) pairs, ``y`` and the aux loss within 1e-6.
 """
 import dataclasses
 
@@ -108,8 +114,9 @@ def test_moe_ffn_small_capacity_drops_tokens():
 @pytest.mark.parametrize("arch", ["mixtral-8x22b",
                                   "llama4-maverick-400b-a17b"])
 def test_moe_ffn_decode_shape_matches_jax(arch):
-    """One token a row: the group is that token, the capacity is still
-    ``group_size``'s."""
+    """One token a row: the group is that token.  The reference runs it
+    over ``group_size``'s capacity, the port over one capacity row an
+    expert (an expert takes at most one row a token); the outputs agree."""
     jcfg, tcfg = _cfgs(arch)
     _check(jcfg, tcfg, b=5, s=1, seed=2)
 
@@ -132,3 +139,66 @@ def test_init_moe_shapes_match_jax(arch):
     assert (jax.tree.map(lambda a: tuple(a.shape), jp)
             == jax.tree.map(lambda a: tuple(a.shape), tp))
     assert tp["router"].dtype == torch.float32
+
+
+# (arch, MoE fields replaced, b, s): decode, a short chunk and full groups at
+# mixtral's 1.25 and 4.0; llama4 (top-1, a shared expert) and its 4-row
+# floor (C = 4 from groups of 8, above a chunk of 2); the dropping case above
+EXACT_CASES = {
+    "mixtral-decode": ("mixtral-8x22b", {}, 5, 1),
+    "mixtral-chunk": ("mixtral-8x22b", {}, 2, 20),
+    "mixtral-groups": ("mixtral-8x22b", {}, 2, 128),
+    "mixtral-4.0-decode": ("mixtral-8x22b", {"capacity_factor": 4.0}, 5, 1),
+    "mixtral-4.0-chunk": ("mixtral-8x22b", {"capacity_factor": 4.0}, 2, 20),
+    "mixtral-4.0-groups": ("mixtral-8x22b", {"capacity_factor": 4.0}, 2, 128),
+    "llama4-decode": ("llama4-maverick-400b-a17b", {}, 5, 1),
+    "llama4-chunk": ("llama4-maverick-400b-a17b", {}, 2, 20),
+    "llama4-groups": ("llama4-maverick-400b-a17b", {}, 2, 128),
+    "llama4-floor-chunk": ("llama4-maverick-400b-a17b", {"group_size": 8},
+                           3, 2),
+    "llama4-floor-groups": ("llama4-maverick-400b-a17b", {"group_size": 8},
+                            3, 16),
+    "drops-groups": ("mixtral-8x22b",
+                     {"group_size": 16, "capacity_factor": 0.5}, 3, 48),
+    "drops-chunk": ("mixtral-8x22b",
+                    {"group_size": 16, "capacity_factor": 0.5}, 3, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(EXACT_CASES))
+def test_moe_ffn_clamped_capacity_matches_the_configured_layout(
+        case, monkeypatch):
+    arch, moe_kw, b, s = EXACT_CASES[case]
+    jcfg, tcfg = _cfgs(arch, **moe_kw)
+    moe = tcfg.moe
+    _, tp = _params(jcfg)
+    x = torch.from_numpy(_x(tcfg, b, s, seed=4))
+    S = min(moe.group_size, s)
+    C = tmoe.capacity(moe)
+
+    calls = []
+    route = tmoe._route
+
+    def recorded(xg, router, moe_, C_):
+        out = route(xg, router, moe_, C_)
+        calls.append(out[0])
+        return out
+
+    monkeypatch.setattr(tmoe, "_route", recorded)
+    y, aux = tmoe.moe_ffn(tp, x, tcfg)
+    (combine,) = calls
+    assert combine.shape[-1] == min(C, S)
+
+    # the configured layout: E x C capacity rows a group
+    xg = x.reshape(b, s // S, S, tcfg.d_model)
+    full, probs, first = route(xg, tp["router"], moe, C)
+    y_full = tmoe._experts(xg, (full > 0).to(x.dtype), full, tp["we_gate"],
+                           tp["we_up"], tp["we_down"]).reshape(x.shape)
+    if "shared" in tp:
+        y_full = y_full + tmoe.L.mlp(tp["shared"], x)
+    aux_full = moe.num_experts * torch.sum(torch.mean(first, dim=(0, 1, 2))
+                                           * torch.mean(probs, dim=(0, 1, 2)))
+
+    assert torch.equal((combine > 0).any(-1), (full > 0).any(-1))
+    torch.testing.assert_close(y, y_full, atol=1e-6, rtol=0)
+    torch.testing.assert_close(aux, aux_full, atol=1e-6, rtol=0)

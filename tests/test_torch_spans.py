@@ -392,14 +392,15 @@ def test_routed_rows_are_the_dispatch_nonzeros_when_rows_drop():
     cfg, params, x = _moe(factor=0.25)           # C = 8 of a group of 64
     b, s = x.shape[:2]
     moe = cfg.moe
-    G, C = s // moe.group_size, tmoe.capacity(moe)
+    S = min(moe.group_size, s)
+    G, C = s // S, tmoe.capacity(moe)
     with spans.recording():
         y, _ = tmoe.moe_ffn(params, x, cfg)
     c = spans.snapshot()["counters"]
     routed = int((_combine(cfg, params, x) > 0).sum())
     assert c["moe.routed_rows"] == routed
     assert c["moe.assigned_rows"] == b * s * moe.top_k
-    assert c["moe.capacity_rows"] == b * moe.num_experts * G * C
+    assert c["moe.capacity_rows"] == b * moe.num_experts * G * min(C, S)
     assert c["moe.routed_rows"] < c["moe.assigned_rows"]   # rows dropped
     assert routed <= c["moe.capacity_rows"]
 
@@ -414,8 +415,21 @@ def test_nothing_drops_at_a_capacity_factor_of_e_over_top_k(factor):
     c = spans.snapshot()["counters"]
     assert c["moe.routed_rows"] == c["moe.assigned_rows"] == (
         2 * 129 * cfg.moe.top_k)
-    C = tmoe.capacity(cfg.moe)
-    assert c["moe.capacity_rows"] == 2 * cfg.moe.num_experts * (2 + 1) * C
+    # two groups of 64, then a decode step's group of one token
+    C, E = tmoe.capacity(cfg.moe), cfg.moe.num_experts
+    assert c["moe.capacity_rows"] == 2 * E * (2 * min(C, 64) + min(C, 1))
+
+
+def test_a_decode_call_counts_one_capacity_row_an_expert():
+    """A decode step's group is its one token: an expert takes at most one
+    row of it, so the call runs b·E capacity rows whatever the factor."""
+    cfg, params, x = _moe(factor=4.0, b=5, s=1)
+    assert tmoe.capacity(cfg.moe) > 1
+    with spans.recording():
+        tmoe.moe_ffn(params, x, cfg)
+    c = spans.snapshot()["counters"]
+    assert c["moe.capacity_rows"] == 5 * cfg.moe.num_experts
+    assert c["moe.routed_rows"] == c["moe.assigned_rows"] == 5 * cfg.moe.top_k
 
 
 def test_the_moe_span_and_counters_follow_the_model_under_autograd():
@@ -500,7 +514,8 @@ def test_on_a_mesh_each_rank_counts_its_own_rows(shape, rows, tmp_path):
     C = tmoe.capacity(dataclasses.replace(moe, capacity_factor=2.0))
     for c in outs:
         assert c["moe.assigned_rows"] == L * rows * 64 * moe.top_k
-        assert c["moe.capacity_rows"] == L * rows * moe.num_experts * C
+        assert c["moe.capacity_rows"] == (L * rows * moe.num_experts
+                                          * min(C, 64))
         assert c["moe.routed_rows"] == c["moe.assigned_rows"]
 
 
@@ -531,9 +546,12 @@ def test_the_serving_spans_and_the_rows_of_a_decode():
     L = cfg.num_layers
     assert moe["parents"] == {"repro.serve.prefill_chunk": 6 * L,
                               "repro.serve.decode": L}
-    C = tmoe.capacity(cfg.moe)
+    # a call's capacity is min(C, S): chunks of 8, 8 and 4 a prompt, then
+    # one decode step of a token a slot
+    C, E = tmoe.capacity(cfg.moe), cfg.moe.num_experts
     assert c["moe.assigned_rows"] == L * (2 * 20 + 2) * cfg.moe.top_k
-    assert c["moe.capacity_rows"] == L * (6 + 2) * cfg.moe.num_experts * C
+    assert c["moe.capacity_rows"] == L * E * (
+        2 * (min(C, 8) + min(C, 8) + min(C, 4)) + 2 * min(C, 1))
     assert c["moe.routed_rows"] == c["moe.assigned_rows"]      # no drop
 
 
