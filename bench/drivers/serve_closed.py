@@ -1,28 +1,34 @@
 """Traffic loop of the serving cells: a closed loop of clients, one per slot,
 through the port's ``serve/engine.py::SlotRunner`` with paged caches.
 
-A finished request's slot is refilled at once: ``release``, then the
-client's next request is prefilled through the runner's chunked path
-(``start_prefill``, ``prefill_chunk`` tokens a ``step`` of its job,
-``finish_prefill``, which samples its first token).  Between admissions
-every active slot decodes one greedy token a ``step``.  A token's time is
-the host clock when the call that made it returned (each admission and
-each ``step`` ends in a copy to the host).
+A finished request's slot is refilled once the decode step that finished
+it has returned: ``release``, then the client's next request is prefilled
+through the runner's chunked path (``start_prefill``, ``prefill_chunk``
+tokens a ``step`` of its job, ``finish_prefill``, which samples its first
+token).  Between admissions every active slot decodes one greedy token a
+``step``.  A token's time is the host clock when the call that made it
+returned (each admission and each ``step`` ends in a copy to the host).
 
 Set-up makes the weights and the runner, fills every slot with its
 client's first request (cut to a residual output length: the loop opens in
-its steady state) and runs one loop iteration, which warms the decode step.
-The window runs iterations until ``--seconds`` have passed and ends with
-the iteration that crosses that time.  With ``--trace 1`` a span of
+its steady state) and runs one loop iteration (a decode step and the
+refills it causes), which warms the decode step.  The window starts with
+the next decode step.  Once ``--seconds`` have passed, it ends at the
+return of the first decode step that finishes a request: that step's
+tokens count, the refill it causes does not.  So every window ends at the
+same phase of the loop, just before a refill, whatever the deadline falls
+in.  With ``--trace 1`` those slots are refilled and a span of
 ``trace_steps`` further iterations runs under the profiler.  Once the
 window has closed and the program's state is freed, the plain reference
-reads a sample, drawn from the seed with the longest in it, of the
-requests that were served tokens: those finished and those still in
-their slots, each with every token it was served.
+reads the requests that were served tokens (those finished and those
+still in their slots, each with every token it was served): by length,
+the longest first, until it has compared one that is not set aside for a
+routing near-tie, then the rest in an order drawn from the seed, until
+``compared_requests`` of them have been compared or none are left.
 
 Workload keys: ``clients``, ``cache_len``, ``page_size``,
 ``prefill_chunk``, ``prompt_len``, ``output_len``, ``pool``,
-``steady_start``, ``sample_requests``, ``kernels``, ``trace_steps``,
+``steady_start``, ``compared_requests``, ``kernels``, ``trace_steps``,
 ``limits``.
 """
 from __future__ import annotations
@@ -59,8 +65,11 @@ class Loop:
         self.admit_s, self.admits, self.step_s, self.steps = 0.0, 0, 0.0, 0
         self.flops = 0
         self.kv_lens = None             # per decode step, when recording
+        self.step_end = None            # host time the last step returned
 
     def admit(self, slot: int) -> None:
+        """Prefill the next request into a free slot (and the one after,
+        if its first token is its last)."""
         req = self.pool.next()
         self.runner.prompts[req.rid] = torch.from_numpy(req.prompt)[None]
         r = program.request(req.rid, req.prompt.size, req.max_new)
@@ -77,19 +86,24 @@ class Loop:
         self.times[req.rid] = [t1]
         self.logits[req.rid] = [self.runner.chosen_logits[0]]
         self.slots[slot] = req
-        self._retire(slot)
-
-    def _retire(self, slot: int) -> None:
-        req = self.slots[slot]
-        if len(self.runner.generated[req.rid]) >= req.max_new:
-            with torch.profiler.record_function("bench.release"):
-                self.runner.release(slot)
-            del self.slots[slot]
-            self.runner.prompts.pop(req.rid)
-            self.finished.append(req)
+        if self._retire(slot):
             self.admit(slot)
 
-    def iteration(self) -> None:
+    def _retire(self, slot: int) -> bool:
+        """Release the slot if its request has all its tokens."""
+        req = self.slots[slot]
+        if len(self.runner.generated[req.rid]) < req.max_new:
+            return False
+        with torch.profiler.record_function("bench.release"):
+            self.runner.release(slot)
+        del self.slots[slot]
+        self.runner.prompts.pop(req.rid)
+        self.finished.append(req)
+        return True
+
+    def step(self) -> list:
+        """One decode step of every active slot; returns the slots it
+        freed, left for ``refill``."""
         active = sorted(self.slots)
         lens = [self.slots[s].prompt.size
                 + len(self.runner.generated[self.slots[s].rid])
@@ -100,6 +114,7 @@ class Loop:
         with torch.profiler.record_function("bench.step"):
             self.runner.step(active)
         t1 = time.perf_counter()
+        self.step_end = t1
         self.step_s += t1 - t
         self.steps += 1
         self.flops += sum(flops.decode_token(self.cfg, n) for n in lens)
@@ -107,22 +122,22 @@ class Loop:
         for s in active:
             self.times[self.slots[s].rid].append(t1)
             self.logits[self.slots[s].rid].append(chosen[s])
-        for s in active:
-            self._retire(s)
+        return [s for s in active if self._retire(s)]
+
+    def refill(self, freed: list) -> None:
+        for s in freed:
+            self.admit(s)
+
+    def iteration(self) -> None:
+        self.refill(self.step())
 
 
-def _sample(spec, served):
-    """Up to ``sample_requests`` of the requests served tokens, drawn from
-    the seed, the longest (prompt and tokens served) always among them."""
-    n = spec.wl["sample_requests"]
-    if len(served) <= n:
-        return list(served)
-    longest = max(range(len(served)), key=lambda i: (
-        served[i][0].prompt.size + served[i][1], -i))
-    rest = [i for i in range(len(served)) if i != longest]
+def _read_order(spec, n: int) -> list:
+    """An order of ``n`` served requests drawn from the seed: the order in
+    which the reference reads them once it has compared the longest that
+    is not set aside."""
     rng = np.random.default_rng(W.sub_seed(spec.seed, SAMPLE_STREAM))
-    pick = rng.choice(rest, size=n - 1, replace=False).tolist()
-    return [served[i] for i in sorted([longest] + pick)]
+    return rng.permutation(n).tolist()
 
 
 def run(spec) -> dict:
@@ -150,16 +165,18 @@ def run(spec) -> dict:
     setup_s = time.time() - spec.t_start
     spec.log(f"set-up {setup_s:.3f} s")
 
-    # the window
+    # the window: from a decode step to the first decode step past the
+    # deadline that frees a slot, its refill left out
     loop.admit_s, loop.admits, loop.step_s, loop.steps = 0.0, 0, 0.0, 0
     loop.flops = 0
     t0 = time.perf_counter()
     deadline = t0 + spec.seconds
     while True:
-        loop.iteration()
-        t1 = time.perf_counter()
-        if t1 >= deadline:
+        freed = loop.step()
+        if freed and loop.step_end >= deadline:
             break
+        loop.refill(freed)
+    t1 = loop.step_end
     window_s = t1 - t0
     gaps = stats.window_gaps(loop.times, t0, t1)
     tokens = stats.window_count(loop.times, t0, t1)
@@ -172,8 +189,11 @@ def run(spec) -> dict:
               "admit_host_s": loop.admit_s, "flops": loop.flops,
               "attempted": attempted, "failed": 0}
     spec.log(f"window {window_s:.3f} s: {loop.steps} steps, {loop.admits} "
-             f"admissions, {tokens} tokens, {len(gaps)} gaps")
+             f"admissions, {tokens} tokens, {len(gaps)} gaps; ended "
+             f"{t1 - deadline:.3f} s past the deadline, at a step that "
+             f"finished {len(freed)} requests")
     if spec.trace:
+        loop.refill(freed)
         loop.kv_lens = []
         def span():
             for _ in range(wl["trace_steps"]):
@@ -188,37 +208,45 @@ def run(spec) -> dict:
     record["device_kind"] = (torch.cuda.get_device_name(dev)
                              if dev.type == "cuda" else "cpu")
 
-    # what was served, then the program's state freed
+    # what was served, on the host, then the program's state freed
     done = {r.rid for r in loop.finished}
-    candidates = [(r, len(runner.generated[r.rid]))
-                  for r in loop.finished + [loop.slots[s]
-                                            for s in sorted(loop.slots)]]
-    chosen = _sample(spec, candidates)
+    every = loop.finished + [loop.slots[s] for s in sorted(loop.slots)]
+    order = [every[i] for i in _read_order(spec, len(every))]
     served = [(torch.from_numpy(r.prompt),
                torch.tensor(runner.generated[r.rid], dtype=torch.int64),
                torch.stack(loop.logits[r.rid]).cpu())
-              for r, _ in chosen]
-    record["sound"] = bool(served) and all(
+              for r in order]
+    record["sound"] = all(
         s.numel() == lg.numel() and (s.numel() == r.max_new if r.rid in done
                                      else s.numel() < r.max_new)
-        for (_, s, lg), (r, _) in zip(served, chosen))
-    record["served"] = [(r.rid, p, s, lg) for (p, s, lg), (r, _) in
-                        zip(served, chosen)]
+        for (_, s, lg), r in zip(served, order))
     del runner, loop, weights
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
     read = token_gaps(cfg, W.make(cfg, spec.seed, dev),
-                      [tuple(t.to(dev) for t in x) for x in served],
-                      control=spec.wl.get("control", ""))
+                      (tuple(t.to(dev) for t in x) for x in served),
+                      control=spec.wl.get("control", ""),
+                      want=spec.wl["compared_requests"], longest=True)
+    n_read = len(read["read"])
+    record["served"] = [(order[i].rid,) + served[i] for i in read["read"]]
     record["compared"] = {"token_gap": read["gap"]}
     record["reference"] = read
     record["sound"] = record["sound"] and read["tokens"] > 0
-    spec.log(f"reference {time.perf_counter() - t_ref:.3f} s over "
-             f"{len(served)} requests ({len(done & {r.rid for r, _ in chosen})}"
-             f" finished), {read['tokens']} tokens compared; set aside for a "
-             f"routing near-tie: {read['near_ties']} requests, "
-             f"{read['near_tie_tokens']} tokens; (P, n, gap, margin) a "
-             f"request: {read['requests']}")
+    length = {i: row[0] + row[1] for i, row in zip(read["read"],
+                                                    read["requests"])}
+    first = read["read"][0]
+    compared = [length[i] for i in read["read"]
+                if i not in read["set_aside"]]
+    spec.log(f"reference {time.perf_counter() - t_ref:.3f} s: of "
+             f"{len(served)} requests served tokens, drew {n_read} "
+             f"({len(done & {order[i].rid for i in read['read']})} "
+             f"finished), set aside {read['near_ties']} for a routing "
+             f"near-tie ({read['near_tie_tokens']} tokens), compared "
+             f"{read['compared']} ({read['tokens']} tokens); the longest "
+             f"served, {length[first]} tokens, "
+             f"{'set aside' if first in read['set_aside'] else 'compared'}"
+             f"; the longest compared {max(compared, default=0)} tokens; "
+             f"(P, n, gap, margin) a request drawn: {read['requests']}")
     return record

@@ -29,7 +29,7 @@ with its near-ties routed the other way (``flip_gap``).
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -57,28 +57,49 @@ def _narrowest(margins, first_served: int) -> float:
 
 
 def token_gaps(cfg: dict, weights: Dict,
-               requests: Sequence[Tuple[torch.Tensor, torch.Tensor,
+               requests: Iterable[Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]],
-               control: str = "", witness: bool = False) -> Dict:
+               control: str = "", witness: bool = False,
+               want: Optional[int] = None, longest: bool = False) -> Dict:
     """``requests``: (prompt (P,) int64, served (n,) int64, the program's
-    logits of the served tokens (n,)), on one device.  Also reports, per
-    request, (P, n, its gap, its narrowest routing margin)."""
+    logits of the served tokens (n,)), on one device, read in their order;
+    with ``longest``, by length (prompt and served) first, the longest
+    first, until one has been compared (not set aside), and then the rest
+    in their order; with ``want``, only until that many have been
+    compared.  Also reports the index of each request read, in the order
+    read (``read``), of each set aside (``set_aside``), and for each read
+    (P, n, its gap, its narrowest routing margin)."""
+    requests = list(requests)
     ref = Decoder(cfg, weights, "f32")
     low = Decoder(cfg, weights, control) if control else None
     flip = Decoder(cfg, weights, "f32", flip_below=NEAR_TIE) if witness \
         else None
-    out = {"gap": 0.0, "tokens": 0, "near_ties": 0, "near_tie_tokens": 0,
-           "requests": []}
+    out = {"gap": 0.0, "tokens": 0, "compared": 0, "near_ties": 0,
+           "near_tie_tokens": 0, "requests": [], "read": [],
+           "set_aside": []}
     if low is not None:
         out["control_gap"] = 0.0
+
+    def order():
+        by_length = sorted(range(len(requests)), key=lambda i: (
+            -requests[i][0].numel() - requests[i][1].numel(), i))
+        for i in by_length if longest else ():
+            if out["compared"]:
+                break
+            yield i
+        yield from (i for i in range(len(requests)) if i not in out["read"])
+
     with torch.no_grad():
-        for prompt, served, got in requests:
+        for i in order():
+            prompt, served, got = requests[i]
+            out["read"].append(i)
             best = _positions_logits(ref, prompt, served).max(dim=-1).values
             margin = _narrowest(ref.margins, prompt.numel() - 1)
             gap = float((best - got.float()).abs().max())
             row = [prompt.numel(), served.numel(), gap, margin]
             out["requests"].append(row)
             if margin < NEAR_TIE:
+                out["set_aside"].append(i)
                 out["near_ties"] += 1
                 out["near_tie_tokens"] += served.numel()
                 if flip is not None:
@@ -88,8 +109,11 @@ def token_gaps(cfg: dict, weights: Dict,
                 continue
             out["gap"] = max(out["gap"], gap)
             out["tokens"] += served.numel()
+            out["compared"] += 1
             if low is not None:
                 first = _positions_logits(low, prompt, served).max(dim=-1)
                 out["control_gap"] = max(out["control_gap"], float(
                     (best - first.values).abs().max()))
+            if out["compared"] == want:
+                break
     return out

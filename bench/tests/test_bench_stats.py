@@ -92,21 +92,50 @@ def test_every_seed_serves_the_same_sizes():
     assert want[0][-1] + want[1][-1] <= wl["cache_len"]
 
 
+def _lengths(wl, seed, n):
+    pool = traffic.RequestPool(wl, seed, 100)
+    reqs = [pool.next() for _ in range(n)]
+    return [(r.prompt.size, r.max_new) for r in reqs], reqs
+
+
 def test_a_steady_start_gives_every_seed_the_same_work():
     wl = harness.load_cell("mixtral-8x22b.serve_decode")[2]
     n = wl["clients"]
-    firsts = []
-    for seed in (0, 1, 2 ** 31 + 5):
-        pool = traffic.RequestPool(wl, seed, 100)
-        firsts.append([(r.prompt.size, r.max_new)
-                       for r in (pool.next() for _ in range(n + 1))])
-    for f in firsts:
-        assert sorted(p for p, _ in f[:n]) == sorted(
-            traffic.quantile_lengths(wl["prompt_len"], n))
-        assert sorted(o for _, o in f[:n]) == sorted(o for _, o in
-                                                     firsts[0][:n])
-        assert f[n] == (1020, 129)      # the medians: the window's refill
-    assert firsts[0][:n] != firsts[1][:n]
+    count = 2 * wl["pool"] + n + 1
+    want, first = _lengths(wl, 0, count)
+    for seed in (1, 2 ** 31 + 5, -7):
+        got, reqs = _lengths(wl, seed, count)
+        assert got == want
+        assert any((a.prompt != b.prompt).any() for a, b in zip(first, reqs))
+    assert sorted(p for p, _ in want[:n]) == sorted(
+        traffic.quantile_lengths(wl["prompt_len"], n))
+    assert want[n] == (1020, 129)       # the medians: the window's refill
+    # then the pool, pass after pass in one order
+    assert want[n + 1:n + 1 + wl["pool"]] == want[n + 1 + wl["pool"]:]
+
+
+def test_any_24_consecutive_requests_span_the_prompt_law():
+    wl = harness.load_cell("mixtral-8x22b.serve_decode")[2]
+    got, _ = _lengths(wl, 2 ** 31 + 5, 2 * wl["pool"] + wl["clients"] + 1)
+    law = np.sort(traffic.quantile_lengths(wl["prompt_len"], wl["pool"]))
+    edges = law[[wl["pool"] // 4, wl["pool"] // 2, 3 * wl["pool"] // 4]]
+    quartile = np.searchsorted(edges, [p for p, _ in got], side="right")
+    for i in range(len(got) - 24 + 1):
+        assert set(quartile[i:i + 24]) == {0, 1, 2, 3}, i
+
+
+def test_the_fixed_order_pairs_long_prompts_with_every_output():
+    wl = harness.load_cell("mixtral-8x22b.serve_decode")[2]
+    n = wl["pool"]
+    pairs = traffic.fixed_pairs(traffic.quantile_lengths(wl["prompt_len"], n),
+                                traffic.quantile_lengths(wl["output_len"], n))
+    assert list(traffic.spread_order(8, 2)) == [0, 4, 2, 6, 1, 5, 3, 7]
+    p = np.argsort(np.argsort([a for a, _ in pairs]))
+    o = np.argsort(np.argsort([b for _, b in pairs]))
+    assert abs(np.corrcoef(p, o)[0, 1]) < 0.1
+    median = np.median([a for a, _ in pairs])
+    long_prompts = [b for a, b in pairs if a >= median]
+    assert min(long_prompts) < 129 < max(long_prompts)
 
 
 def test_log_normal_lengths_keep_their_median_and_mean():
@@ -119,10 +148,9 @@ def test_log_normal_lengths_keep_their_median_and_mean():
 def test_residual_lengths_are_the_forward_recurrence_quantiles():
     lengths = traffic.quantile_lengths({"min": 32, "max": 128,
                                         "dist": "uniform"}, 97)
-    a = traffic.residual_lengths(lengths, 8, np.random.default_rng(0))
-    b = traffic.residual_lengths(lengths, 8, np.random.default_rng(1))
-    assert sorted(a) == sorted(b) and list(a) != list(b)
-    many = traffic.residual_lengths(lengths, 4000, np.random.default_rng(0))
+    a = traffic.residual_lengths(lengths, 8)
+    assert list(a) == sorted(a) and len(set(a)) == 8
+    many = traffic.residual_lengths(lengths, 4000)
     # E[R] = E[L^2] / (2 E[L]) + 1/2 for a discrete length
     want = (lengths.astype(float) ** 2).mean() / (2 * lengths.mean()) + 0.5
     assert many.mean() == pytest.approx(want, rel=0.01)

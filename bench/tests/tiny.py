@@ -16,7 +16,7 @@ TRAIN = {"batch": 4, "seq": 16, "trace_steps": 1}
 SERVE = {"clients": 3, "cache_len": 40, "page_size": 4, "prefill_chunk": 8,
          "prompt_len": {"dist": "log_normal", "median": 10, "mean": 11},
          "output_len": {"dist": "log_normal", "median": 4, "mean": 5},
-         "pool": 16, "sample_requests": 4, "trace_steps": 2}
+         "pool": 16, "compared_requests": 4, "trace_steps": 2}
 
 
 def tiny_config(cfg: dict) -> dict:

@@ -5,16 +5,20 @@ made from ``--seed``.
   token ids drawn uniformly from the vocabulary (inputs the first ``seq``,
   labels the last ``seq``), so every row of every step differs.
 * Serving: a pool of requests whose prompt and output lengths are the
-  ``pool`` quantiles of the workload's distributions, each list put in an
-  order drawn from the seed: every seed serves the same set of sizes, in
-  another order.  Prompt ids are uniform over the vocabulary.  With
-  ``steady_start`` the loop opens in its steady state with the same work in
-  every seed: the n clients' first requests take the n mid-quantiles of the
+  ``pool`` mid-quantiles of the workload's distributions, served pass after
+  pass in one fixed order that no seed changes: the prompt quantiles in the
+  order of the base-2 radical inverse of their position (bit reversal, for
+  a power of two), the output quantiles in that of the base-3 one.  So any
+  short run of consecutive requests spreads over both laws, and long
+  prompts do not pair with long outputs.  Every seed serves the same
+  lengths in the same order; the seed draws the prompt ids alone, uniform
+  over the vocabulary.  With ``steady_start`` the loop opens in its steady
+  state: the n clients' first requests take the n mid-quantiles of the
   prompt law and, as output lengths, the n mid-quantiles of the
   forward-recurrence distribution of the output law (the remaining length
-  of a request caught in flight), each in an order drawn from the seed; the
-  next request, the window's first refill, takes the medians of both laws;
-  the pool follows.
+  of a request caught in flight), in the same two orders; the next
+  request, the window's first refill, takes the medians of both laws; the
+  pool follows.
 """
 from __future__ import annotations
 
@@ -28,7 +32,6 @@ import numpy as np
 from bench.weights import sub_seed
 
 DATA_STREAM = 2
-ORDER_STREAM = 3
 
 
 def train_batches(seed: int, batch: int, seq: int,
@@ -60,15 +63,28 @@ def quantile_lengths(spec: Dict, n: int) -> np.ndarray:
     raise ValueError(f"length distribution {spec['dist']!r}")
 
 
-def residual_lengths(lengths: np.ndarray, n: int,
-                     rng: np.random.Generator) -> np.ndarray:
-    """The n mid-quantiles of the remaining length of a request caught in
-    flight (P(r) proportional to the share of ``lengths`` that are >= r),
-    in an order drawn from ``rng``."""
+def residual_lengths(lengths: np.ndarray, n: int) -> np.ndarray:
+    """The n mid-quantiles, ascending, of the remaining length of a request
+    caught in flight (P(r) proportional to the share of ``lengths`` that
+    are >= r)."""
     r = np.arange(1, int(lengths.max()) + 1)
     cdf = np.cumsum([(lengths >= x).mean() for x in r])
-    q = r[np.searchsorted(cdf / cdf[-1], (np.arange(n) + 0.5) / n)]
-    return rng.permutation(q)
+    return r[np.searchsorted(cdf / cdf[-1], (np.arange(n) + 0.5) / n)]
+
+
+def spread_order(n: int, base: int) -> np.ndarray:
+    """For each position k in 0..n-1, the rank of k's base-``base``
+    radical inverse among them: ``x[spread_order(n, b)]`` takes an
+    ascending ``x`` in an order of which every short run spreads over the
+    whole range."""
+    def radical_inverse(k: int) -> float:
+        x, f = 0.0, 1.0 / base
+        while k:
+            k, d = divmod(k, base)
+            x += d * f
+            f /= base
+        return x
+    return np.argsort([radical_inverse(k) for k in range(n)]).argsort()
 
 
 @dataclasses.dataclass
@@ -78,31 +94,37 @@ class Req:
     max_new: int
 
 
+def fixed_pairs(prompts: np.ndarray,
+                outputs: np.ndarray) -> List[Tuple[int, int]]:
+    """(prompt length, output length) of ascending quantile lists, in the
+    fixed order: prompts by the base-2 spread order, outputs by base 3."""
+    n = len(prompts)
+    return list(zip(prompts[spread_order(n, 2)].tolist(),
+                    outputs[spread_order(n, 3)].tolist()))
+
+
 class RequestPool:
     """Requests in the order the closed loop takes them; ``next()`` gives
-    the next one (the pool repeats in a new order if a run outlasts it)."""
+    the next one (the pool repeats in the same order if a run outlasts
+    it)."""
 
     def __init__(self, wl: Dict, seed: int, vocab: int):
         self.n = int(wl["pool"])
         self.prompts = quantile_lengths(wl["prompt_len"], self.n)
         self.outputs = quantile_lengths(wl["output_len"], self.n)
         self.vocab = vocab
-        self.order = np.random.default_rng(sub_seed(seed, ORDER_STREAM))
         self.data = np.random.default_rng(sub_seed(seed, DATA_STREAM))
         self.queue: List[Tuple[int, int]] = []
         self.issued = 0
         if wl.get("steady_start"):
             n = int(wl["clients"])
-            fills = self.order.permutation(
-                quantile_lengths(wl["prompt_len"], n))
-            left = residual_lengths(self.outputs, n, self.order)
-            self.queue = list(zip(fills.tolist(), left.tolist())) + [(
+            self.queue = fixed_pairs(quantile_lengths(wl["prompt_len"], n),
+                                     residual_lengths(self.outputs, n)) + [(
                 int(quantile_lengths(wl["prompt_len"], 1)[0]),
                 int(quantile_lengths(wl["output_len"], 1)[0]))]
 
     def _refill(self) -> None:
-        self.queue = list(zip(self.order.permutation(self.prompts).tolist(),
-                              self.order.permutation(self.outputs).tolist()))
+        self.queue = fixed_pairs(self.prompts, self.outputs)
 
     def next(self) -> Req:
         if not self.queue:
